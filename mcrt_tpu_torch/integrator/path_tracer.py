@@ -1,0 +1,383 @@
+"""Wavefront path tracer: NEE + MIS + Russian roulette over a batch of ray lanes.
+
+The port of the JAX package's path tracer (reference
+source/integrator/path-tracer/path-tracer.cpp:14-51 and
+source/integrator/integrator.cpp:31-129): a batch of rays advances one bounce
+per loop iteration; every per-ray decision (event selection, NEE visibility,
+RR) is a masked lane; two scene intersections per bounce (primary + shadow).
+
+The bounce loop is a Python `while` whose condition reads one flag from the
+device once per bounce (the JAX package's `lax.while_loop`); `trace_streamed`
+counts those host synchronisations.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..camera import camera as cam_mod
+from ..ops import intersect as isect
+from ..sampling import sobol
+from ..scene.loader import SceneMeta, SceneTables
+from . import common
+from .common import PARK_DIRECTION, PARK_DISTANCE
+
+
+@dataclasses.dataclass(frozen=True)
+class PTConfig:
+    max_bounces: int = 64
+    min_ray_depth: int = 3            # RR kicks in past this many diffuse bounces
+    min_priority_ray_depth: int = 16  # ... or this many total bounces
+    ior_stack_size: int = 8
+    global_seed: int = 0
+
+
+def ray_offset_eps(dtype) -> float:
+    """Shadow-acne offset. The reference uses 1e-9 with f64 (constants.hpp:9); f32
+    needs a bigger nudge to survive rounding of position = o + t*d."""
+    return 1e-9 if dtype == torch.float64 else 1e-4
+
+
+def sky_color(direction):
+    """Orange/blue gradient on miss (reference scene.cpp:219-223):
+    orange * (1 - fy) + blue * fy, written per channel (the products by 0 and 1
+    are exact), so no constant has to be uploaded inside the bounce loop."""
+    dy = torch.clamp(direction[..., 1], -1.0, 1.0)
+    fy = (1.0 + torch.arcsin(dy) / torch.pi) / 2.0
+    return torch.stack([1.0 - fy, 0.5 * (1.0 - fy) + 0.5 * fy, fy], dim=-1)
+
+
+class PathState(NamedTuple):
+    bounce: torch.Tensor            # (R,) int32 — per lane (streamed lanes run paths at different depths)
+    ray_count: torch.Tensor         # scalar int64: rays traced (primary + shadow)
+    path_id: torch.Tensor           # (R,) int32 local path index
+    next_path: torch.Tensor         # scalar int64: next unassigned path (streamed)
+    out_rad: torch.Tensor           # (n_out + 1, 3) finished radiance, last row = dump (streamed)
+    pixel_index: torch.Tensor       # (R,) int64 holding uint32
+    sample_index: torch.Tensor      # (R,) int64 holding uint32
+    origin: torch.Tensor            # (R,3)
+    direction: torch.Tensor         # (R,3)
+    medium_ior: torch.Tensor        # (R,)
+    refraction_scale: torch.Tensor  # (R,)
+    ray_dirac: torch.Tensor         # (R,) bool — current ray spawned by dirac event
+    ray_refraction: torch.Tensor    # (R,) bool — current ray is a refraction
+    diffuse_depth: torch.Tensor     # (R,) int32
+    refraction_level: torch.Tensor  # (R,) int32
+    iors: torch.Tensor              # (R,K) RefractionHistory stack
+    ior_count: torch.Tensor         # (R,) int32
+    throughput: torch.Tensor        # (R,3)
+    radiance: torch.Tensor          # (R,3)
+    alive: torch.Tensor             # (R,) bool
+    prev_light: torch.Tensor        # (R,) int32 global surf id of last NEE light (-1)
+    prev_bsdf_pdf: torch.Tensor     # (R,)
+    prev_select_prob: torch.Tensor  # (R,)
+
+
+class RegenCfg(NamedTuple):
+    """Path regeneration (persistent wavefront) in dynamic mode: a lane whose
+    path dies writes its radiance out and loads the globally next unassigned
+    path, so lanes stay busy instead of idling until the batch drains."""
+    cam: object              # CameraDef
+    consts: object           # camera.CameraConsts on the render device
+    width: int
+    spp: int
+    start: int               # global path index of local path 0
+    n_paths: int             # paths this call streams
+    lanes: int
+    pixel_sums: bool         # accumulate per-pixel sums instead of per-path radiance
+
+
+def make_bounce_step(
+    tables: SceneTables,
+    meta: SceneMeta,
+    cfg: PTConfig,
+    intersect_fn: Callable,
+    regen: RegenCfg | None = None,
+):
+    """Builds the single-bounce transition function over PathState."""
+    dtype = tables.tri_v0.dtype
+    eps = ray_offset_eps(dtype)
+    K = cfg.ior_stack_size
+    packs = common.build_packs(tables, meta)
+
+    def step(st: PathState) -> PathState:
+        base_ctx = sobol.make_ctx(cfg.global_seed, st.pixel_index, st.sample_index, dtype)
+        ctx = sobol.shuffled(base_ctx, st.bounce.to(torch.int64) + 1)
+        R = st.origin.shape[0]
+
+        hit = intersect_fn(st.origin, st.direction)
+        ray_count = st.ray_count + st.alive.sum()
+        missed = hit.surf_id < 0
+        # Sky gradient on miss.
+        radiance = st.radiance + torch.where(
+            (st.alive & missed)[:, None], st.throughput * sky_color(st.direction),
+            torch.zeros_like(st.radiance))
+        alive = st.alive & ~missed
+
+        ix = common.interaction_setup(
+            tables, meta, st.origin, st.direction, hit,
+            st.iors, st.ior_count, st.refraction_level, st.medium_ior,
+            packs=packs,
+        )
+
+        # ---- sampleEmissive (integrator.cpp:93-110) ----
+        radiance = radiance + st.throughput * common.sample_emissive(
+            ix, st.direction, st.bounce, st.ray_dirac, st.prev_light,
+            st.prev_bsdf_pdf, st.prev_select_prob, hit.surf_id, alive,
+        )
+
+        # ---- sampleDirect / NEE (integrator.cpp:31-87) ----
+        if meta.has_lights:
+            nee, prev_light, prev_select_prob, shadow_rays = common.sample_direct(
+                tables, ix, ctx, intersect_fn, eps, alive, packs=packs
+            )
+            radiance = radiance + st.throughput * nee
+            ray_count = ray_count + shadow_rays
+        else:
+            prev_light = torch.full((R,), -1, dtype=torch.int32, device=st.origin.device)
+            prev_select_prob = torch.ones((R,), dtype=dtype, device=st.origin.device)
+
+        # ---- event selection + new ray + BSDF throughput ----
+        b = common.bsdf_bounce(ix, st.direction, ctx, eps, flux=False)
+        diffuse_depth = st.diffuse_depth + b.is_diffuse.to(torch.int32)
+        new_refr_scale = st.refraction_scale * b.refr_scale_mult
+        throughput = st.throughput * b.weight
+        alive = alive & b.valid
+
+        # ---- Russian roulette (integrator.cpp:112-129); new ray depth = bounce+1 ----
+        u_abs = sobol.sample(ctx, 6)
+        survive = throughput.amax(dim=-1) * new_refr_scale
+        new_depth = st.bounce + 1
+        apply_rr = (diffuse_depth > cfg.min_ray_depth) | (new_depth > cfg.min_priority_ray_depth)
+        survive_c = torch.clamp(survive, max=0.95)
+        rr_kill = apply_rr & (survive_c <= u_abs)
+        rr_boost = apply_rr & ~rr_kill
+        rr_div = torch.where(rr_boost, survive_c, torch.ones_like(survive_c))
+        throughput = torch.where(rr_boost[:, None], throughput / rr_div[:, None], throughput)
+        alive = alive & (survive > 0.0) & ~rr_kill
+
+        # ---- RefractionHistory update (ray.cpp:80-98) with the new ray ----
+        iors, ior_count, new_level = common.update_ior_stack(
+            st.iors, st.ior_count, st.refraction_level, b.level_delta, b.new_medium, K
+        )
+
+        bounce = st.bounce + 1
+        pixel_index = st.pixel_index
+        sample_index = st.sample_index
+        path_id = st.path_id
+        next_path = st.next_path
+        out_rad = st.out_rad
+        medium_ior = b.new_medium
+        ray_dirac = b.dirac_next
+        ray_refraction = b.did_refract
+
+        if regen is not None:
+            # Lanes at the depth cap die here so their radiance is finalized.
+            alive = alive & (bounce < cfg.max_bounces)
+            died_now = st.alive & ~alive
+            # 1. finalize: add dead paths' radiance to their row (the path's, or
+            # its pixel's with pixel_sums); live lanes add zero to the dump row.
+            dump = out_rad.shape[0] - 1
+            tgt = torch.div(path_id, regen.spp, rounding_mode="floor") if regen.pixel_sums else path_id
+            slot = torch.where(died_now, tgt, torch.full_like(tgt, dump)).to(torch.int64)
+            # In place: the previous state is never read again.
+            out_rad.index_add_(
+                0, slot, torch.where(died_now[:, None], radiance, torch.zeros_like(radiance)))
+            # 2. reload: dead lanes pull the next unassigned paths in lane order.
+            died_i = died_now.to(torch.int64)
+            rank = torch.cumsum(died_i, 0) - died_i
+            new_local = next_path + rank
+            has_new = died_now & (new_local < regen.n_paths)
+            next_path = next_path + died_i.sum()
+            lin = regen.start + torch.clamp(new_local, max=regen.n_paths - 1)
+            pix = torch.div(lin, regen.spp, rounding_mode="floor")
+            fresh = cam_mod.generate_rays(
+                regen.cam, pix % regen.width, torch.div(pix, regen.width, rounding_mode="floor"),
+                lin % regen.spp, cfg.global_seed, dtype, consts=regen.consts,
+            )
+            sel = has_new[:, None]
+            alive = alive | has_new
+            new_origin = torch.where(sel, fresh.origin,
+                                     torch.where(alive[:, None], b.new_origin, PARK_DISTANCE))
+            new_dir = torch.where(sel, fresh.direction,
+                                  torch.where(alive[:, None], b.new_dir, PARK_DIRECTION))
+            scene_ior = tables.ior.to(dtype)
+            zi = torch.zeros_like(bounce)
+            bounce = torch.where(has_new, zi, bounce)
+            pixel_index = torch.where(has_new, fresh.pixel_index, pixel_index)
+            sample_index = torch.where(has_new, fresh.sample_index, sample_index)
+            path_id = torch.where(has_new, new_local.to(torch.int32), path_id)
+            medium_ior = torch.where(has_new, scene_ior, medium_ior)
+            new_refr_scale = torch.where(has_new, torch.ones_like(new_refr_scale), new_refr_scale)
+            ray_dirac = ray_dirac & ~has_new
+            ray_refraction = ray_refraction & ~has_new
+            diffuse_depth = torch.where(has_new, zi, diffuse_depth)
+            new_level = torch.where(has_new, zi, new_level)
+            iors = torch.where(sel, scene_ior, iors)
+            ior_count = torch.where(has_new, zi + 1, ior_count)
+            throughput = torch.where(sel, torch.ones_like(throughput), throughput)
+            radiance = torch.where(sel, torch.zeros_like(radiance), radiance)
+            prev_light = torch.where(has_new, zi - 1, prev_light)
+            b_pdf = torch.where(has_new, torch.zeros_like(b.pdf), b.pdf)
+            prev_select_prob = torch.where(has_new, torch.ones_like(prev_select_prob), prev_select_prob)
+        else:
+            new_origin = torch.where(alive[:, None], b.new_origin, PARK_DISTANCE)
+            new_dir = torch.where(alive[:, None], b.new_dir, PARK_DIRECTION)
+            b_pdf = b.pdf
+
+        return PathState(
+            bounce=bounce,
+            ray_count=ray_count,
+            path_id=path_id,
+            next_path=next_path,
+            out_rad=out_rad,
+            pixel_index=pixel_index,
+            sample_index=sample_index,
+            origin=new_origin,
+            direction=new_dir,
+            medium_ior=medium_ior,
+            refraction_scale=new_refr_scale,
+            ray_dirac=ray_dirac,
+            ray_refraction=ray_refraction,
+            diffuse_depth=diffuse_depth,
+            refraction_level=new_level,
+            iors=iors,
+            ior_count=ior_count,
+            throughput=throughput,
+            radiance=radiance,
+            alive=alive,
+            prev_light=prev_light,
+            prev_bsdf_pdf=b_pdf,
+            prev_select_prob=prev_select_prob,
+        )
+
+    return step
+
+
+def _init_state(tables, cfg, origin, direction, pixel_index, sample_index, alive,
+                path_id, next_path, out_rad) -> PathState:
+    dtype = origin.dtype
+    L = origin.shape[0]
+    dev = origin.device
+    f0 = torch.zeros((L,), dtype=dtype, device=dev)
+    i0 = torch.zeros((L,), dtype=torch.int32, device=dev)
+    scene_ior = tables.ior.to(dtype)
+    return PathState(
+        bounce=i0,
+        ray_count=torch.zeros((), dtype=torch.int64, device=dev),
+        path_id=path_id,
+        next_path=next_path,
+        out_rad=out_rad,
+        pixel_index=pixel_index,
+        sample_index=sample_index,
+        origin=origin,
+        direction=direction,
+        medium_ior=f0 + scene_ior,
+        refraction_scale=f0 + 1.0,
+        ray_dirac=i0 != 0,
+        ray_refraction=i0 != 0,
+        diffuse_depth=i0,
+        refraction_level=i0,
+        iors=(f0 + scene_ior)[:, None].expand(L, cfg.ior_stack_size).contiguous(),
+        ior_count=i0 + 1,
+        throughput=torch.ones((L, 3), dtype=dtype, device=dev),
+        radiance=torch.zeros((L, 3), dtype=dtype, device=dev),
+        alive=alive,
+        prev_light=i0 - 1,
+        prev_bsdf_pdf=f0,
+        prev_select_prob=f0 + 1.0,
+    )
+
+
+def trace(
+    tables: SceneTables,
+    meta: SceneMeta,
+    cfg: PTConfig,
+    origin,
+    direction,
+    pixel_index,
+    sample_index,
+    intersect_fn: Callable | None = None,
+    return_stats: bool = False,
+):
+    """Trace a batch of camera rays to radiance. Returns (R,3) radiance
+    (and {"rays": count, "bounce_steps": host syncs} with return_stats)."""
+    if intersect_fn is None:
+        intersect_fn = lambda o, d: isect.intersect_brute(tables, meta, o, d)
+    step = make_bounce_step(tables, meta, cfg, intersect_fn)
+    R = origin.shape[0]
+    dev = origin.device
+    st = _init_state(
+        tables, cfg, origin, direction, sobol.as_u32(pixel_index, dev),
+        sobol.as_u32(sample_index, dev), torch.ones((R,), dtype=torch.bool, device=dev),
+        torch.arange(R, dtype=torch.int32, device=dev),
+        torch.tensor(R, dtype=torch.int64, device=dev),
+        torch.zeros((1, 3), dtype=origin.dtype, device=dev))
+    steps = 0
+    # One host sync per bounce: the loop ends when every lane died or the
+    # slowest lane reached max_bounces.
+    while bool(st.alive.any() & (st.bounce.min() < cfg.max_bounces)):
+        st = step(st)
+        steps += 1
+    if return_stats:
+        return st.radiance, {"rays": st.ray_count, "bounce_steps": steps}
+    return st.radiance
+
+
+def trace_streamed(
+    tables: SceneTables,
+    meta: SceneMeta,
+    cfg: PTConfig,
+    cam,
+    spp: int,
+    start: int,
+    n_paths: int,
+    lanes: int,
+    intersect_fn: Callable | None = None,
+    pixel_sums: bool = False,
+    stats: dict | None = None,
+):
+    """Persistent-wavefront trace: `lanes` lanes stream `n_paths` camera paths
+    (global indices [start, start+n_paths), pixel-major x sample-minor as in
+    render()). A lane whose path terminates adds its radiance to the output
+    buffer and loads the next unassigned path. Runs until every path drained.
+
+    Returns (radiance, rays traced): radiance is (n_paths, 3) per path, or
+    (n_paths // spp, 3) per-pixel sums with pixel_sums. If `stats` is a dict,
+    "bounce_steps" (= host syncs) is added to it."""
+    dtype = tables.tri_v0.dtype
+    dev = tables.tri_v0.device
+    if intersect_fn is None:
+        intersect_fn = lambda o, d: isect.intersect_brute(tables, meta, o, d)
+    if pixel_sums and n_paths % spp:
+        raise ValueError("pixel_sums needs an spp-aligned path count")
+    L = lanes
+    n_out = (n_paths // spp) if pixel_sums else n_paths
+    consts = cam_mod.camera_consts(cam, dtype, dev)
+    regen = RegenCfg(cam=cam, consts=consts, width=cam.width, spp=spp, start=int(start),
+                     n_paths=n_paths, lanes=L, pixel_sums=pixel_sums)
+    step = make_bounce_step(tables, meta, cfg, intersect_fn, regen=regen)
+
+    local0 = torch.arange(L, dtype=torch.int64, device=dev)
+    live0 = local0 < n_paths
+    lin0 = int(start) + torch.clamp(local0, max=n_paths - 1)
+    pix0 = torch.div(lin0, spp, rounding_mode="floor")
+    first = cam_mod.generate_rays(
+        cam, pix0 % cam.width, torch.div(pix0, cam.width, rounding_mode="floor"),
+        lin0 % spp, cfg.global_seed, dtype, consts=consts,
+    )
+    st = _init_state(
+        tables, cfg, torch.where(live0[:, None], first.origin, PARK_DISTANCE), first.direction,
+        first.pixel_index, first.sample_index, live0, local0.to(torch.int32),
+        torch.tensor(min(L, n_paths), dtype=torch.int64, device=dev),
+        torch.zeros((n_out + 1, 3), dtype=dtype, device=dev))
+    steps = 0
+    while bool(st.alive.any()):   # one host sync per bounce
+        st = step(st)
+        steps += 1
+    if stats is not None:
+        stats["bounce_steps"] = stats.get("bounce_steps", 0) + steps
+    # A drained loop has no alive lanes, so nothing is left to flush.
+    return st.out_rad[:n_out], st.ray_count

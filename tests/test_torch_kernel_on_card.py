@@ -1,0 +1,103 @@
+"""The CUDA traversal kernel against its plain PyTorch version, on the card.
+
+Imports no JAX, so it also runs on a machine that has a card and no JAX:
+
+    python3 -m pytest --noconftest -q tests/test_torch_kernel_on_card.py
+
+(`--noconftest`: tests/conftest.py sets up JAX for the JAX package's tests).
+Without a card the kernel test skips: a CUDA kernel has no CPU mode. The ray
+sets here are also used by tests/test_torch_traverse.py. The plain version's
+fused multiply-add, which makes it the kernel's bit-for-bit twin, is tested on
+the CPU."""
+import numpy as np
+import pytest
+import torch
+
+from mcrt_tpu_torch import convert
+from mcrt_tpu_torch.accel.bvh_build import build_bvh
+from mcrt_tpu_torch.ops import traverse_kernel as tk
+from mcrt_tpu_torch.scene.synthetic import make_displaced_grid
+
+PARK = 2e30
+KINDS = ("camera", "random", "axis", "parked", "mixed")
+
+
+def grid_mesh(n=32):
+    """A 2 n^2-triangle displaced grid and its fat-leaf (128-triangle) flat BVH."""
+    v0, e1, e2 = make_displaced_grid(n)
+    mins = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
+    maxs = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
+    flat = build_bvh(mins, maxs, kind="binary_sah", max_leaf=128, dtype=np.float32, strict_leaf=True)
+    return (v0, e1, e2), flat
+
+
+def ray_set(kind, n=768, seed=5):
+    """(origin, direction) float32 numpy rays over the grid of `grid_mesh`."""
+    rng = np.random.default_rng(seed)
+    if kind == "camera":
+        # A pinhole above the grid looking down at it. Directions are jittered:
+        # a regular lattice of rays over the regular mesh lands exactly on shared
+        # edges, where which triangle wins is decided by the last bit of rounding.
+        d = np.concatenate([rng.uniform(-0.7, 0.7, (n, 2)), -np.ones((n, 1))], 1)
+        o = np.broadcast_to([5.0, 5.0, 6.0], d.shape).copy()
+    elif kind == "random":
+        # Origins 1.5-4 above the field (height within +-0.5), directions uniform:
+        # every hit is at t > 1, where float32 forms summed in different orders
+        # agree to the rtol bar; half the rays point away.
+        o = np.concatenate([rng.uniform(0, 10, (n, 2)), rng.uniform(1.5, 4.0, (n, 1))], 1)
+        d = rng.normal(size=(n, 3))
+    elif kind == "axis":
+        # Straight down: inv_d has infinite components (the slab-test NaN trap).
+        o = np.concatenate([rng.uniform(0.5, 9.5, (n, 2)), np.full((n, 1), 5.0)], 1)
+        d = np.broadcast_to([0.0, 0.0, -1.0], (n, 3)).copy()
+    elif kind == "parked":
+        o = np.full((256, 3), PARK)
+        d = np.full((256, 3), 0.57735026)
+    elif kind == "mixed":
+        o, d = ray_set("camera", n, seed)
+        o[::2], d[::2] = PARK, 0.57735026
+        return o, d
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode); chip_smoke.py runs it")
+    (v0, e1, e2), flat = grid_mesh()
+    cb = convert.cluster_bvh_from_numpy(flat.bb_min, flat.bb_max, flat.first, flat.count,
+                                        flat.prim_order, v0, e1, e2, "cuda", np.float32)
+    for kind in KINDS:
+        o, d = (torch.as_tensor(x).cuda() for x in ray_set(kind))
+        before = tk.kernel.launches
+        k = tk.traverse(cb, o, d)
+        torch.cuda.synchronize()
+        assert tk.kernel.launches == before + 1
+        (kt, kid, ku, kv, kst), (pt, pid, pu, pv, pst) = k, tk.traverse_plain(cb, o, d)
+        # The kernel fuses the forms into FMAs; the plain version rounds each
+        # product: ids and stats identical, t, u, v to the last bits.
+        assert torch.equal(kid, pid) and torch.equal(kst, pst), kind
+        torch.testing.assert_close(kt, pt, rtol=5e-6, atol=0.0, msg=kind)
+        assert float(torch.maximum((ku - pu).abs().max(), (kv - pv).abs().max())) <= 5e-3, kind
+        if kind == "parked":
+            assert (k[1] == -1).all() and int(k[4][:, 1].max()) == 0
+
+
+def test_plain_fma_rounds_once():
+    """`_fma` is a * b + c rounded once, as the kernel's fmaf. In these cases the
+    float64 sum lands exactly on a float32 midpoint while the exact value does
+    not, so rounding twice (float64, then float32) gives the wrong neighbour."""
+    lo = 2.0 ** -24 * (1 + 2.0 ** -23)
+    a = np.float32([lo, -lo, lo, -lo])
+    b = np.full(4, 1 - 2.0 ** -23, np.float32)
+    c = np.float32([1, 1, -1, -1]) * np.float32(1 + 2.0 ** -23)
+    want = c                   # the exact values lie 2^-70 inside c's rounding interval
+    twice = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert (twice != want).all()
+    got = tk._fma(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    assert (got.view(np.int32) == want.view(np.int32)).all()
+    rng = np.random.default_rng(3)
+    x, y, z = (rng.normal(size=(3, 1000)) * 10.0 ** rng.integers(-3, 3, (3, 1000))).astype(np.float32)
+    fused = (x.astype(np.float64) * y + z).astype(np.float32)   # rounds twice only at midpoints
+    assert np.array_equal(tk._fma(*(torch.from_numpy(v) for v in (x, y, z))).numpy(), fused)
