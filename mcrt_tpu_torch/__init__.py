@@ -2,10 +2,11 @@
 
 Beside the JAX package, not built on it: this package imports torch and
 nothing of `mcrt_tpu` or JAX. Entry points run on the CUDA device unless the
-caller passes device="cpu". The cluster-BVH traversal on the main path is a
-hand-written CUDA kernel (csrc/traverse.cu) compiled with nvcc at first use.
+caller passes device="cpu". The cluster-BVH traversal (csrc/traverse.cu) and
+the photon mapper's one-ring k-NN (csrc/knn.cu) are hand-written CUDA kernels,
+compiled with nvcc at first use. `python -m mcrt_tpu_torch` is the CLI.
 """
 from .scene.loader import Scene  # noqa: F401
-from .render import RenderConfig, render  # noqa: F401
+from .render import RenderConfig, render, render_to_file  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,15 +1,17 @@
 """Bring a scene's "weights" into the port from host arrays.
 
-A renderer's parameters are its scene tables and its acceleration structure.
-These functions build the port's `SceneTables` and `ClusterBVH` from numpy
-arrays — the port's own loader, or `np.asarray` of every field of the JAX
-package's tables — so both packages can compute on identical inputs.
+A renderer's parameters are its scene tables, its acceleration structure and,
+for the photon mapper, its photon maps. These functions build the port's
+`SceneTables`, `ClusterBVH` and `PhotonGrid` from numpy arrays — the port's
+own loader, or `np.asarray` of every field of the JAX package's objects — so
+both packages can compute on identical inputs.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .accel.photon_grid import PhotonGrid, PhotonGridArrays
 from .ops.cluster_bvh import ClusterBVH, cluster_tables_numpy
 from .scene.loader import SceneTables
 from .utils.device import resolve_device, torch_dtype
@@ -54,4 +56,22 @@ def cluster_bvh_from_numpy(bb_min, bb_max, first, count, prim_order, tri_v0, tri
         tri=torch.as_tensor(tri, device=device),
         bb_lo=torch.as_tensor(bb_min[0], device=device).to(fdt),
         bb_hi=torch.as_tensor(bb_max[0], device=device).to(fdt),
+    )
+
+
+def photon_grid_from_numpy(pos, direction, flux, cell_start, bb_min, cell_size, dims, m_per_cell,
+                           n_photons, device=None) -> PhotonGrid:
+    """PhotonGrid from a built grid's arrays (photons sorted by cell, CSR starts)
+    and its static fields, as the JAX package's PhotonGrid holds them; the
+    float arrays keep their dtype, cell_start becomes int32."""
+    device = resolve_device(device)
+    t = lambda x: torch.as_tensor(np.array(x), device=device)
+    return PhotonGrid(
+        arrays=PhotonGridArrays(pos=t(pos), direction=t(direction), flux=t(flux),
+                                cell_start=t(np.asarray(cell_start, np.int32))),
+        bb_min=tuple(float(x) for x in bb_min),
+        cell_size=float(cell_size),
+        dims=tuple(int(x) for x in dims),
+        m_per_cell=int(m_per_cell),
+        n_photons=int(n_photons),
     )

@@ -40,6 +40,15 @@ def ray_offset_eps(dtype) -> float:
     return 1e-9 if dtype == torch.float64 else 1e-4
 
 
+def _sample_light_position(tables: SceneTables, light_idx, u, v):
+    """Gather the light rows `light_idx`, then sample a position and normal on
+    each (the photon mapper's emission; NEE gathers from the light pack)."""
+    li = torch.clamp(light_idx, min=0).to(torch.int64)
+    return common._sample_light_position_from(
+        tables.light_kind[li].to(u.dtype), tables.light_p0[li],
+        tables.light_p1[li], tables.light_p2[li], tables.light_normal[li], u, v)
+
+
 def sky_color(direction):
     """Orange/blue gradient on miss (reference scene.cpp:219-223):
     orange * (1 - fy) + blue * fy, written per channel (the products by 0 and 1

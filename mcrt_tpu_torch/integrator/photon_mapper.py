@@ -1,0 +1,694 @@
+"""Two-pass photon mapper: emission pass + grid k-NN radiance estimates.
+
+The port of the JAX package's integrator/photon_mapper.py (reference
+source/integrator/photon-mapper/photon-mapper.cpp):
+
+* Pass 1 (photon tracing, photon-mapper.cpp:24-277): emissions stream through
+  a pool of lanes; a lane whose photon dies (constant-flux Russian roulette,
+  no depth cap) loads the next emission. Stores go into a caustic and a global
+  buffer; caustic photons are stored when the incoming ray was dirac-spawned,
+  global photons with 1/caustic_factor rejection (:244-255). A chunk whose
+  stores overflow a buffer is run again with a larger one: each photon path is
+  fixed by its (light, emission) ids, so the set of photons does not change.
+* The maps are uniform photon grids (accel/photon_grid), searched by the
+  one-ring k-NN kernel (accel/knn_kernel) with an exact fallback.
+* Pass 2 (sampleRay, :279-341): a masked wavefront follows specular chains;
+  the caustic estimate is taken at every non-dirac interaction, the global
+  estimate one diffuse bounce later unless `direct_visualization`. Estimates
+  follow :343-391: global = sum(flux * f |cos| / pdf) / (pi r_k^2), caustic
+  cone-filtered with w_p = 1 - d / r_k and 3 / (pi r_k^2).
+
+The JAX package's `while_loop`s are Python loops that read one flag from the
+device per step; `stats` counts the steps.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from ..accel import photon_grid as pgrid
+from ..camera import camera as cam_mod
+from ..materials import bsdf
+from ..ops import geometry as g
+from ..ops import intersect as isect
+from ..sampling import sobol
+from ..scene.loader import SceneMeta, SceneTables
+from . import common
+from .common import PARK_DIRECTION, PARK_DISTANCE
+from .path_tracer import _sample_light_position, ray_offset_eps
+
+# Rows of each store buffer per emission of a chunk. Stores average well under
+# one per emission; a chunk that stores more is run again with larger buffers.
+STORE_MARGIN = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class PMConfig:
+    emissions: int = 100_000
+    caustic_factor: float = 1.0
+    k_nearest_photons: int = 50
+    direct_visualization: bool = False
+    max_eye_bounces: int = 64
+    min_ray_depth: int = 3
+    min_priority_ray_depth: int = 16
+    ior_stack_size: int = 8
+    global_seed: int = 0
+    emission_chunk: int = 1 << 16
+
+    @staticmethod
+    def from_json(j: dict | None, **over) -> "PMConfig":
+        j = j or {}
+        kw = dict(
+            emissions=int(j.get("emissions", 100_000)),
+            caustic_factor=float(j.get("caustic_factor", 1.0)),
+            k_nearest_photons=int(j.get("k_nearest_photons", 50)),
+            direct_visualization=bool(j.get("direct_visualization", False)),
+        )
+        kw.update(over)
+        return PMConfig(**kw)
+
+
+class PhotonMaps(NamedTuple):
+    caustic: pgrid.PhotonGrid
+    global_: pgrid.PhotonGrid
+
+
+# ----------------------------------------------------------------------------------
+# Pass 1: emission
+# ----------------------------------------------------------------------------------
+
+class _EmitState(NamedTuple):
+    origin: torch.Tensor
+    direction: torch.Tensor
+    flux: torch.Tensor
+    medium_ior: torch.Tensor
+    refraction_level: torch.Tensor
+    iors: torch.Tensor
+    ior_count: torch.Tensor
+    ray_dirac: torch.Tensor
+    alive: torch.Tensor
+
+
+class _EmitStream(NamedTuple):
+    """Regenerating-emission state: lane photon state + identity + the store
+    buffers. Each buffer has CAP rows plus one dump row that takes the writes
+    of lanes that store nothing (and of stores past CAP)."""
+    st: _EmitState
+    bounce: torch.Tensor      # (L,) int32 per-lane bounce
+    lane_light: torch.Tensor  # (L,) int64 light id
+    lane_emis: torch.Tensor   # (L,) int64 emission id (uint32 values)
+    next_e: torch.Tensor      # scalar int64: next unassigned emission (chunk-local)
+    c_buf: torch.Tensor       # (CAP + 1, 9) packed pos|dir|flux, caustic
+    c_cnt: torch.Tensor       # scalar int64: stores so far (may exceed CAP)
+    g_buf: torch.Tensor       # (CAP + 1, 9) global
+    g_cnt: torch.Tensor
+
+
+def _fresh_photons(tables, cfg: PMConfig, li, ei, eps, flux_pp, dtype):
+    """Light position + cosine direction for emission ids (li, ei)
+    (photon-mapper.cpp:103-110; Sobol dims 0-3 of the unshuffled ctx)."""
+    ctx0 = sobol.make_ctx(cfg.global_seed, li, ei, dtype)
+    u0, u1, u2, u3 = sobol.sample_n(ctx0, 0, 4)
+    pos, normal = _sample_light_position(tables, li, u0, u1)
+    t, bvec = g.orthonormal_basis(normal)
+    direction = g.from_local(g.cos_weighted_hemi(u2, u3), t, bvec, normal)
+    return pos + normal * eps, direction, flux_pp[li]
+
+
+def _scatter_stores(buf, cnt, mask, rows):
+    """Append the masked rows at cnt, cnt+1, ...; the rest go to the dump row."""
+    cap = buf.shape[0] - 1
+    m = mask.to(torch.int64)
+    slot = cnt + torch.cumsum(m, 0) - m
+    slot = torch.where(mask & (slot < cap), slot, cap)
+    buf[slot] = rows   # in place: the previous buffer is never read again
+    return buf, cnt + m.sum()
+
+
+def _make_emission_step(tables, meta, cfg: PMConfig, intersect_fn, light_tab, emis_tab,
+                        n_chunk, flux_pp):
+    """One regenerating emission bounce over _EmitStream."""
+    dtype = tables.tri_v0.dtype
+    eps = ray_offset_eps(dtype)
+    non_caustic_reject = 1.0 / cfg.caustic_factor
+    K = cfg.ior_stack_size
+    packs = common.build_packs(tables, meta)
+    scene_ior = tables.ior.to(dtype)
+
+    def step(sm: _EmitStream) -> _EmitStream:
+        st = sm.st
+        base_ctx = sobol.make_ctx(cfg.global_seed, sm.lane_light, sm.lane_emis, dtype)
+        ctx = sobol.shuffled(base_ctx, sm.bounce.to(torch.int64) + 1)
+        hit = intersect_fn(st.origin, st.direction)
+        alive = st.alive & (hit.surf_id >= 0)
+
+        ix = common.interaction_setup(
+            tables, meta, st.origin, st.direction, hit,
+            st.iors, st.ior_count, st.refraction_level, st.medium_ior,
+            packs=packs,
+        )
+
+        # Photon deposit (photon-mapper.cpp:242-255): only at non-dirac materials.
+        can_store = alive & ~ix.mat.dirac_delta
+        caustic_mask = can_store & st.ray_dirac
+        u_rej = sobol.sample(ctx, 2)
+        global_mask = can_store & ~st.ray_dirac & (non_caustic_reject > u_rej)
+        out_flux = torch.where(caustic_mask[:, None], st.flux, st.flux / non_caustic_reject)
+        rows = torch.cat([ix.position, -st.direction, out_flux], dim=1)
+        c_buf, c_cnt = _scatter_stores(sm.c_buf, sm.c_cnt, caustic_mask, rows)
+        g_buf, g_cnt = _scatter_stores(sm.g_buf, sm.g_cnt, global_mask, rows)
+
+        # Importance-transport BSDF bounce + constant-flux RR (:257-273)
+        b = common.bsdf_bounce(ix, st.direction, ctx, eps, flux=True)
+        survive = torch.clamp(b.weight.amax(dim=-1), max=0.95)
+        u_abs = sobol.sample(ctx, 6)
+        live_next = alive & b.valid & (survive > 0.0) & (survive > u_abs)
+        flux = st.flux * b.weight / bsdf._safe(survive)[:, None]
+
+        iors, ior_count, new_level = common.update_ior_stack(
+            st.iors, st.ior_count, st.refraction_level, b.level_delta, b.new_medium, K
+        )
+
+        # ---- regeneration: dead lanes pull the next unassigned emissions ----
+        died = st.alive & ~live_next
+        died_i = died.to(torch.int64)
+        new_local = sm.next_e + torch.cumsum(died_i, 0) - died_i
+        has_new = died & (new_local < n_chunk)
+        le = torch.clamp(new_local, max=n_chunk - 1)
+        li_new = light_tab[le]
+        ei_new = emis_tab[le]
+        o_f, d_f, fl_f = _fresh_photons(tables, cfg, li_new, ei_new, eps, flux_pp, dtype)
+        sel = has_new[:, None]
+        alive_next = live_next | has_new
+        zi = torch.zeros_like(new_level)
+        st_new = _EmitState(
+            origin=torch.where(sel, o_f, torch.where(alive_next[:, None], b.new_origin, PARK_DISTANCE)),
+            direction=torch.where(sel, d_f, torch.where(alive_next[:, None], b.new_dir, PARK_DIRECTION)),
+            flux=torch.where(sel, fl_f, flux),
+            medium_ior=torch.where(has_new, scene_ior, b.new_medium),
+            refraction_level=torch.where(has_new, zi, new_level),
+            iors=torch.where(sel, scene_ior, iors),
+            ior_count=torch.where(has_new, zi + 1, ior_count),
+            ray_dirac=b.dirac_next & ~has_new,
+            alive=alive_next,
+        )
+        return _EmitStream(
+            st=st_new,
+            bounce=torch.where(has_new, zi, sm.bounce + 1),
+            lane_light=torch.where(has_new, li_new, sm.lane_light),
+            lane_emis=torch.where(has_new, ei_new, sm.lane_emis),
+            next_e=sm.next_e + died_i.sum(),
+            c_buf=c_buf,
+            c_cnt=c_cnt,
+            g_buf=g_buf,
+            g_cnt=g_cnt,
+        )
+
+    return step
+
+
+def emission_plan(scene_np, cfg: PMConfig):
+    """Host-side flux-proportional emission split (photon-mapper.cpp:63-78).
+
+    Returns (light_idx (E,) int32, emission_idx (E,) uint32, flux_per_photon
+    (L,3)) where E = the emissions scaled by caustic_factor."""
+    radiosity = np.asarray(scene_np.light_radiosity, np.float64)
+    area = np.asarray(scene_np.light_area, np.float64)
+    light_flux = radiosity * area[:, None]           # (L,3)
+    total = float(light_flux.sum())
+    total_emissions = int(cfg.emissions * cfg.caustic_factor)
+    shares = light_flux.sum(axis=1) / total
+    counts = (total_emissions * shares).astype(np.int64)
+    counts = np.maximum(counts, 1)
+    flux_per_photon = light_flux / counts[:, None]
+    light_idx = np.repeat(np.arange(len(counts), dtype=np.int32), counts)
+    emission_idx = np.concatenate([np.arange(c, dtype=np.uint32) for c in counts])
+    return light_idx, emission_idx, flux_per_photon
+
+
+def _run_chunk(tables, meta, cfg, intersect_fn, light_tab, emis_tab, flux_pp, lanes, cap, stats):
+    """The chunk of emissions (light_tab, emis_tab) through the regenerating
+    lanes, with store buffers of `cap` rows; returns the final _EmitStream."""
+    n_chunk = light_tab.shape[0]
+    dtype = tables.tri_v0.dtype
+    dev = tables.tri_v0.device
+    step = _make_emission_step(tables, meta, cfg, intersect_fn, light_tab, emis_tab,
+                               n_chunk, flux_pp)
+    L = lanes
+    local0 = torch.arange(L, dtype=torch.int64, device=dev)
+    live0 = local0 < n_chunk
+    le0 = torch.clamp(local0, max=n_chunk - 1)
+    li0, ei0 = light_tab[le0], emis_tab[le0]
+    eps = ray_offset_eps(dtype)
+    o0, d0, fl0 = _fresh_photons(tables, cfg, li0, ei0, eps, flux_pp, dtype)
+    i0 = torch.zeros((L,), dtype=torch.int32, device=dev)
+    scene_ior = tables.ior.to(dtype)
+    st0 = _EmitState(
+        origin=torch.where(live0[:, None], o0, PARK_DISTANCE),
+        direction=d0,
+        flux=fl0,
+        medium_ior=torch.zeros((L,), dtype=dtype, device=dev) + scene_ior,
+        refraction_level=i0,
+        iors=(torch.zeros((L, cfg.ior_stack_size), dtype=dtype, device=dev) + scene_ior),
+        ior_count=i0 + 1,
+        ray_dirac=i0 != 0,
+        alive=live0,
+    )
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    sm = _EmitStream(
+        st=st0, bounce=i0, lane_light=li0, lane_emis=ei0,
+        next_e=zero + min(L, n_chunk),
+        c_buf=torch.zeros((cap + 1, 9), dtype=dtype, device=dev), c_cnt=zero,
+        g_buf=torch.zeros((cap + 1, 9), dtype=dtype, device=dev), g_cnt=zero,
+    )
+    steps = 0
+    while bool(sm.st.alive.any()):   # one host sync per step
+        sm = step(sm)
+        steps += 1
+    stats["emission_steps"] = stats.get("emission_steps", 0) + steps
+    return sm
+
+
+def emit_photons(
+    tables: SceneTables,
+    meta: SceneMeta,
+    cfg: PMConfig,
+    scene_np,
+    intersect_fn: Callable | None = None,
+    verbose: bool = False,
+    stats: dict | None = None,
+):
+    """Run pass 1. Returns (caustic, global) photon SoA numpy triples.
+
+    Emissions stream through `lanes` lanes in chunks of ECH. The store buffers
+    hold STORE_MARGIN x ECH rows; a chunk that stores more into either is run
+    again with buffers of its counted size. With a `stats` dict,
+    "emission_steps" and "emission_reruns" are added to it."""
+    stats = {} if stats is None else stats
+    dtype = tables.tri_v0.dtype
+    dev = tables.tri_v0.device
+    if intersect_fn is None:
+        intersect_fn = lambda o, d: isect.intersect_brute(tables, meta, o, d)
+
+    light_idx_all, emission_idx_all, flux_pp = emission_plan(scene_np, cfg)
+    flux_pp_dev = torch.as_tensor(flux_pp, device=dev).to(dtype)
+    E = len(light_idx_all)
+    lanes = min(cfg.emission_chunk, max(256, E))
+    ECH = min(E, 1 << 20)
+    cap = max(1, int(STORE_MARGIN * ECH))
+
+    out = {"caustic": [], "global": []}
+    done = 0
+    while done < E:
+        n = min(ECH, E - done)
+        li = torch.as_tensor(light_idx_all[done:done + n].astype(np.int64), device=dev)
+        ei = torch.as_tensor(emission_idx_all[done:done + n].astype(np.int64), device=dev)
+        args = (tables, meta, cfg, intersect_fn, li, ei, flux_pp_dev, lanes)
+        sm = _run_chunk(*args, cap, stats)
+        c_n, g_n = int(sm.c_cnt), int(sm.g_cnt)
+        if max(c_n, g_n) > cap:
+            # Stores past the buffer were dropped: grow it and run the chunk
+            # again; the photon paths, and so the stores, are the same.
+            cap = max(c_n, g_n)
+            stats["emission_reruns"] = stats.get("emission_reruns", 0) + 1
+            sm = _run_chunk(*args, cap, stats)
+        out["caustic"].append(sm.c_buf[:c_n].cpu().numpy())
+        out["global"].append(sm.g_buf[:g_n].cpu().numpy())
+        done += n
+        if verbose:
+            print(f"\rphotons emitted: {done}/{E}", end="", flush=True)
+    if verbose:
+        print()
+
+    def cat(rows):
+        r = np.concatenate(rows) if rows else np.zeros((0, 9))
+        return r[:, 0:3], r[:, 3:6], r[:, 6:9]
+
+    return cat(out["caustic"]), cat(out["global"])
+
+
+def build_photon_maps(tables, meta, cfg: PMConfig, scene_np, intersect_fn=None,
+                      verbose=False, stats: dict | None = None) -> PhotonMaps:
+    """Both photon maps as grids on the tables' device."""
+    (cp, cd, cf), (gp, gd, gf) = emit_photons(
+        tables, meta, cfg, scene_np, intersect_fn, verbose, stats)
+    dtype = tables.tri_v0.dtype
+    dev = tables.tri_v0.device
+    k = cfg.k_nearest_photons
+    return PhotonMaps(
+        caustic=pgrid.build_photon_grid(cp, cd, cf, k, dtype, device=dev),
+        global_=pgrid.build_photon_grid(gp, gd, gf, k, dtype, device=dev),
+    )
+
+
+# ----------------------------------------------------------------------------------
+# Radiance estimates (photon-mapper.cpp:343-391)
+# ----------------------------------------------------------------------------------
+
+def _expand_mat(mat: bsdf.MatParams) -> bsdf.MatParams:
+    """(R,...) material params -> (R,1,...) for broadcasting against (R,k,...)."""
+    return bsdf.MatParams._make(x[:, None] for x in mat)
+
+
+def _estimate(
+    grid: pgrid.PhotonGrid,
+    arrays: pgrid.PhotonGridArrays,
+    ix: common.Interaction,
+    k: int,
+    cone: bool,
+    mask=None,
+    stats: dict | None = None,
+):
+    """Shared k-NN radiance estimate. cone=True -> caustic filter, else global.
+    `mask` (R,) marks lanes whose estimate is used (others skip the exact-k-NN
+    fallback: dead and parked lanes hold garbage positions)."""
+    dtype = ix.position.dtype
+    if grid.empty:
+        return torch.zeros_like(ix.position)
+    # exact=True: the reference is exact at every density (linear-octree.cpp:25-117).
+    d2, idx, valid, w = pgrid.knn(grid, arrays, ix.position, k, mask=mask, exact=True,
+                                  stats=stats)
+    r2k = torch.where(valid, d2, torch.zeros_like(d2)).amax(dim=1)   # k-th (max) distance^2
+    any_found = valid.any(dim=1)
+
+    il = idx.to(torch.int64)
+    wi_w = arrays.direction[il]                                         # (R,k,3)
+    flux = arrays.flux[il] * w[..., None]  # occ/M rescale for subsampled cells
+    wi_l = g.to_local(wi_w, ix.tb_t[:, None], ix.tb_b[:, None], ix.sn[:, None])
+    f, pdf = bsdf.eval_layered(
+        _expand_mat(ix.mat), ix.wo_l[:, None], wi_l,
+        ix.n1[:, None], ix.n2[:, None], ix.inside[:, None],
+        ix.R_cl[:, None], ix.T[:, None],
+        event=torch.zeros(wi_l.shape[:2], dtype=torch.int32, device=wi_l.device), flux=False,
+        wi_dirac=torch.zeros(wi_l.shape[:2], dtype=torch.bool, device=wi_l.device),
+    )
+    absidotn = f * torch.abs(wi_l[..., 2])[..., None]
+    ok = valid & (pdf > 0.0)
+    contrib = torch.where(ok[..., None], flux * absidotn / bsdf._safe(pdf)[..., None],
+                          torch.zeros_like(absidotn))
+    if cone:
+        wp = torch.clamp(1.0 - torch.sqrt(d2 / bsdf._safe(r2k)[:, None]), min=0.0)
+        contrib = contrib * torch.where(ok, wp, torch.zeros_like(wp))[..., None]
+        total = torch.sum(contrib, dim=1) * (3.0 / math.pi) / bsdf._safe(r2k)[:, None]
+    else:
+        total = torch.sum(contrib, dim=1) / (math.pi * bsdf._safe(r2k))[:, None]
+    return torch.where(any_found[:, None], total, torch.zeros_like(total)).to(dtype)
+
+
+# ----------------------------------------------------------------------------------
+# Pass 2: eye paths
+# ----------------------------------------------------------------------------------
+
+class _EyeState(NamedTuple):
+    bounce: torch.Tensor
+    origin: torch.Tensor
+    direction: torch.Tensor
+    medium_ior: torch.Tensor
+    refraction_scale: torch.Tensor
+    ray_dirac: torch.Tensor
+    diffuse_depth: torch.Tensor
+    refraction_level: torch.Tensor
+    iors: torch.Tensor
+    ior_count: torch.Tensor
+    throughput: torch.Tensor
+    radiance: torch.Tensor
+    alive: torch.Tensor
+    prev_light: torch.Tensor
+    prev_bsdf_pdf: torch.Tensor
+    prev_select_prob: torch.Tensor
+    # Regeneration fields (trace_streamed): per-lane path identity + the output
+    # buffer dead paths add their radiance to (last row = dump).
+    pixel_index: torch.Tensor
+    sample_index: torch.Tensor
+    path_id: torch.Tensor
+    next_path: torch.Tensor
+    out_rad: torch.Tensor
+
+
+class _Regen(NamedTuple):
+    cam: object        # CameraDef
+    consts: object     # camera.CameraConsts on the render device
+    spp: int
+    start: int         # global path index of local path 0
+    n_paths: int
+
+
+def _make_eye_step(tables: SceneTables, meta: SceneMeta, cfg: PMConfig, maps: PhotonMaps,
+                   intersect_fn: Callable, regen: _Regen | None = None,
+                   stats: dict | None = None):
+    """One eye-pass bounce over _EyeState. With `regen`, a lane whose path ends
+    adds its radiance to out_rad and loads the next (pixel, sample) path."""
+    dtype = tables.tri_v0.dtype
+    eps = ray_offset_eps(dtype)
+    K = cfg.ior_stack_size
+    k = cfg.k_nearest_photons
+    packs = common.build_packs(tables, meta)
+    scene_ior = tables.ior.to(dtype)
+
+    def step(st: _EyeState) -> _EyeState:
+        R = st.origin.shape[0]
+        dev = st.origin.device
+        base_ctx = sobol.make_ctx(cfg.global_seed, st.pixel_index, st.sample_index, dtype)
+        ctx = sobol.shuffled(base_ctx, st.bounce.to(torch.int64) + 1)
+        hit = intersect_fn(st.origin, st.direction)
+        alive = st.alive & (hit.surf_id >= 0)   # miss: no sky term in photon mapping
+
+        ix = common.interaction_setup(
+            tables, meta, st.origin, st.direction, hit,
+            st.iors, st.ior_count, st.refraction_level, st.medium_ior,
+            packs=packs,
+        )
+        radiance = st.radiance + st.throughput * common.sample_emissive(
+            ix, st.direction, st.bounce, st.ray_dirac, st.prev_light,
+            st.prev_bsdf_pdf, st.prev_select_prob, hit.surf_id, alive,
+        )
+
+        # Event selection decides interaction.dirac_delta (interaction.cpp:53).
+        b = common.bsdf_bounce(ix, st.direction, ctx, eps, flux=False)
+        ix_dirac = b.dirac_next
+        from_cam_or_spec = st.ray_dirac | (st.bounce == 0)
+
+        # Caustic estimate at every non-dirac interaction (:315)
+        caustic_mask = alive & ~ix_dirac
+        caustic = _estimate(maps.caustic, maps.caustic.arrays, ix, k, cone=True,
+                            mask=caustic_mask, stats=stats)
+        radiance = radiance + torch.where(caustic_mask[:, None], st.throughput * caustic,
+                                          torch.zeros_like(caustic))
+
+        cont_spec = alive & ix_dirac & from_cam_or_spec
+        cont_diff = alive & ~ix_dirac & from_cam_or_spec & (not cfg.direct_visualization)
+        terminate_global = alive & ~ix_dirac & ~cont_diff
+
+        # NEE only on the delayed-global continuation (:319-326)
+        if meta.has_lights:
+            nee, prev_light, prev_select_prob, _ = common.sample_direct(
+                tables, ix, ctx, intersect_fn, eps, cont_diff, packs=packs
+            )
+            radiance = radiance + torch.where(cont_diff[:, None], st.throughput * nee,
+                                              torch.zeros_like(nee))
+            prev_light = torch.where(cont_diff, prev_light, torch.full_like(prev_light, -1))
+        else:
+            prev_light = torch.full((R,), -1, dtype=torch.int32, device=dev)
+            prev_select_prob = torch.ones((R,), dtype=dtype, device=dev)
+
+        # Global estimate terminates the path (:330)
+        glob = _estimate(maps.global_, maps.global_.arrays, ix, k, cone=False,
+                         mask=terminate_global, stats=stats)
+        radiance = radiance + torch.where(terminate_global[:, None], st.throughput * glob,
+                                          torch.zeros_like(glob))
+
+        cont = (cont_spec | cont_diff) & b.valid
+        throughput = torch.where(cont[:, None], st.throughput * b.weight, st.throughput)
+        diffuse_depth = st.diffuse_depth + (cont & b.is_diffuse).to(torch.int32)
+        new_refr_scale = st.refraction_scale * torch.where(
+            cont, b.refr_scale_mult, torch.ones_like(b.refr_scale_mult))
+
+        # absorb() Russian roulette (integrator.cpp:112-129)
+        u_abs = sobol.sample(ctx, 6)
+        survive = throughput.amax(dim=-1) * new_refr_scale
+        new_depth = st.bounce + 1
+        apply_rr = (diffuse_depth > cfg.min_ray_depth) | (new_depth > cfg.min_priority_ray_depth)
+        survive_c = torch.clamp(survive, max=0.95)
+        rr_kill = apply_rr & (survive_c <= u_abs)
+        throughput = torch.where(
+            (cont & apply_rr & ~rr_kill)[:, None],
+            throughput / bsdf._safe(survive_c)[:, None], throughput,
+        )
+        alive_next = cont & (survive > 0.0) & ~rr_kill
+
+        iors, ior_count, new_level = common.update_ior_stack(
+            st.iors, st.ior_count, st.refraction_level, b.level_delta, b.new_medium, K
+        )
+
+        bounce = st.bounce + 1
+        alive_next = alive_next & (bounce < cfg.max_eye_bounces)
+        pixel_index = st.pixel_index
+        sample_index = st.sample_index
+        path_id = st.path_id
+        next_path = st.next_path
+        out_rad = st.out_rad
+        medium_ior = b.new_medium
+        ray_dirac = b.dirac_next
+        prev_bsdf_pdf = b.pdf
+
+        if regen is not None:
+            died_now = st.alive & ~alive_next
+            dump = out_rad.shape[0] - 1
+            slot = torch.where(died_now, path_id, torch.full_like(path_id, dump)).to(torch.int64)
+            # In place: the previous state is never read again.
+            out_rad.index_add_(
+                0, slot, torch.where(died_now[:, None], radiance, torch.zeros_like(radiance)))
+            died_i = died_now.to(torch.int64)
+            new_local = next_path + torch.cumsum(died_i, 0) - died_i
+            has_new = died_now & (new_local < regen.n_paths)
+            next_path = next_path + died_i.sum()
+            lin = regen.start + torch.clamp(new_local, max=regen.n_paths - 1)
+            pix = torch.div(lin, regen.spp, rounding_mode="floor")
+            w = regen.cam.width
+            fresh = cam_mod.generate_rays(
+                regen.cam, pix % w, torch.div(pix, w, rounding_mode="floor"),
+                lin % regen.spp, cfg.global_seed, dtype, consts=regen.consts)
+            sel = has_new[:, None]
+            alive_next = alive_next | has_new
+            new_origin = torch.where(sel, fresh.origin,
+                                     torch.where(alive_next[:, None], b.new_origin, PARK_DISTANCE))
+            new_dir = torch.where(sel, fresh.direction,
+                                  torch.where(alive_next[:, None], b.new_dir, PARK_DIRECTION))
+            zi = torch.zeros_like(bounce)
+            bounce = torch.where(has_new, zi, bounce)
+            pixel_index = torch.where(has_new, fresh.pixel_index, pixel_index)
+            sample_index = torch.where(has_new, fresh.sample_index, sample_index)
+            path_id = torch.where(has_new, new_local.to(torch.int32), path_id)
+            medium_ior = torch.where(has_new, scene_ior, medium_ior)
+            new_refr_scale = torch.where(has_new, torch.ones_like(new_refr_scale), new_refr_scale)
+            ray_dirac = ray_dirac & ~has_new
+            diffuse_depth = torch.where(has_new, zi, diffuse_depth)
+            new_level = torch.where(has_new, zi, new_level)
+            iors = torch.where(sel, scene_ior, iors)
+            ior_count = torch.where(has_new, zi + 1, ior_count)
+            throughput = torch.where(sel, torch.ones_like(throughput), throughput)
+            radiance = torch.where(sel, torch.zeros_like(radiance), radiance)
+            prev_light = torch.where(has_new, zi - 1, prev_light)
+            prev_select_prob = torch.where(has_new, torch.ones_like(prev_select_prob),
+                                           prev_select_prob)
+        else:
+            # Dead lanes are parked: the traversal culls them for free.
+            new_origin = torch.where(alive_next[:, None], b.new_origin, PARK_DISTANCE)
+            new_dir = torch.where(alive_next[:, None], b.new_dir, PARK_DIRECTION)
+
+        return _EyeState(
+            bounce=bounce, origin=new_origin, direction=new_dir, medium_ior=medium_ior,
+            refraction_scale=new_refr_scale, ray_dirac=ray_dirac, diffuse_depth=diffuse_depth,
+            refraction_level=new_level, iors=iors, ior_count=ior_count, throughput=throughput,
+            radiance=radiance, alive=alive_next, prev_light=prev_light,
+            prev_bsdf_pdf=prev_bsdf_pdf, prev_select_prob=prev_select_prob,
+            pixel_index=pixel_index, sample_index=sample_index, path_id=path_id,
+            next_path=next_path, out_rad=out_rad,
+        )
+
+    return step
+
+
+def _init_eye(tables, cfg, origin, direction, pixel_index, sample_index, alive, path_id,
+              next_path, out_rad) -> _EyeState:
+    dtype = origin.dtype
+    L = origin.shape[0]
+    dev = origin.device
+    f0 = torch.zeros((L,), dtype=dtype, device=dev)
+    i0 = torch.zeros((L,), dtype=torch.int32, device=dev)
+    scene_ior = tables.ior.to(dtype)
+    return _EyeState(
+        bounce=i0, origin=origin, direction=direction, medium_ior=f0 + scene_ior,
+        refraction_scale=f0 + 1.0, ray_dirac=i0 != 0, diffuse_depth=i0, refraction_level=i0,
+        iors=(f0 + scene_ior)[:, None].expand(L, cfg.ior_stack_size).contiguous(),
+        ior_count=i0 + 1, throughput=torch.ones((L, 3), dtype=dtype, device=dev),
+        radiance=torch.zeros((L, 3), dtype=dtype, device=dev), alive=alive,
+        prev_light=i0 - 1, prev_bsdf_pdf=f0, prev_select_prob=f0 + 1.0,
+        pixel_index=pixel_index, sample_index=sample_index, path_id=path_id,
+        next_path=next_path, out_rad=out_rad,
+    )
+
+
+def _drain(step, st: _EyeState, stats: dict | None) -> _EyeState:
+    steps = 0
+    while bool(st.alive.any()):   # one host sync per bounce
+        st = step(st)
+        steps += 1
+    if stats is not None:
+        stats["bounce_steps"] = stats.get("bounce_steps", 0) + steps
+    return st
+
+
+def trace(
+    tables: SceneTables,
+    meta: SceneMeta,
+    cfg: PMConfig,
+    maps: PhotonMaps,
+    origin,
+    direction,
+    pixel_index,
+    sample_index,
+    intersect_fn: Callable | None = None,
+    stats: dict | None = None,
+):
+    """Photon-mapping eye pass for a batch of camera rays -> (R,3) radiance.
+    With a `stats` dict, "bounce_steps" (host syncs) and the k-NN counts of
+    photon_grid.knn are added to it."""
+    R = origin.shape[0]
+    dev = origin.device
+    if intersect_fn is None:
+        intersect_fn = lambda o, d: isect.intersect_brute(tables, meta, o, d)
+    step = _make_eye_step(tables, meta, cfg, maps, intersect_fn, stats=stats)
+    st = _init_eye(
+        tables, cfg, origin, direction, sobol.as_u32(pixel_index, dev),
+        sobol.as_u32(sample_index, dev), torch.ones((R,), dtype=torch.bool, device=dev),
+        torch.arange(R, dtype=torch.int32, device=dev),
+        torch.tensor(R, dtype=torch.int64, device=dev),
+        torch.zeros((1, 3), dtype=origin.dtype, device=dev))
+    return _drain(step, st, stats).radiance
+
+
+def trace_streamed(
+    tables: SceneTables,
+    meta: SceneMeta,
+    cfg: PMConfig,
+    maps: PhotonMaps,
+    cam,
+    spp: int,
+    start: int,
+    n_paths: int,
+    lanes: int,
+    intersect_fn: Callable | None = None,
+    stats: dict | None = None,
+):
+    """Persistent-wavefront eye pass: `lanes` lanes stream `n_paths` camera paths
+    (global indices [start, start+n_paths), pixel-major), as
+    path_tracer.trace_streamed does. Returns (n_paths, 3) radiance."""
+    dtype = tables.tri_v0.dtype
+    dev = tables.tri_v0.device
+    if intersect_fn is None:
+        intersect_fn = lambda o, d: isect.intersect_brute(tables, meta, o, d)
+    consts = cam_mod.camera_consts(cam, dtype, dev)
+    regen = _Regen(cam=cam, consts=consts, spp=spp, start=int(start), n_paths=n_paths)
+    step = _make_eye_step(tables, meta, cfg, maps, intersect_fn, regen=regen, stats=stats)
+
+    L = lanes
+    local0 = torch.arange(L, dtype=torch.int64, device=dev)
+    live0 = local0 < n_paths
+    lin0 = int(start) + torch.clamp(local0, max=n_paths - 1)
+    pix0 = torch.div(lin0, spp, rounding_mode="floor")
+    first = cam_mod.generate_rays(
+        cam, pix0 % cam.width, torch.div(pix0, cam.width, rounding_mode="floor"),
+        lin0 % spp, cfg.global_seed, dtype, consts=consts,
+    )
+    st = _init_eye(
+        tables, cfg, torch.where(live0[:, None], first.origin, PARK_DISTANCE), first.direction,
+        first.pixel_index, first.sample_index, live0, local0.to(torch.int32),
+        torch.tensor(min(L, n_paths), dtype=torch.int64, device=dev),
+        torch.zeros((n_paths + 1, 3), dtype=dtype, device=dev))
+    # A drained loop has no alive lanes, so nothing is left to flush.
+    return _drain(step, st, stats).out_rad[:n_paths]

@@ -7,19 +7,26 @@ accumulates into a film carried across chunks on the device. With
 `streamed=True` (the default, the main path) a chunk's paths stream through
 `lanes` persistent lanes (`path_tracer.trace_streamed`), and under the box
 filter at radius 0.5 the per-pixel sums go straight into the film rows.
+`integrator="photon_mapper"` first builds the photon maps (or loads them from
+the checkpoint directory), then runs the photon eye pass over the same chunks.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import pathlib
 import time
+import zipfile
 
 import numpy as np
 import torch
 
 from .camera import camera as cam_mod
 from .camera import film as film_mod
+from .camera import image as image_mod
+from .accel import photon_grid as pgrid
 from .integrator import path_tracer as pt
+from .integrator import photon_mapper as pm
 from .ops import cluster_bvh
 from .scene.loader import Scene
 from .utils.device import resolve_device, torch_dtype
@@ -32,7 +39,7 @@ class RenderConfig:
     global_seed: int = 0
     rays_per_chunk: int = 1 << 17     # paths per chunk
     sqrtspp: int | None = None        # override scene camera spp
-    integrator: str = "path_tracer"   # "photon_mapper" is not ported yet
+    integrator: str = "path_tracer"   # or "photon_mapper"
     # Persistent-wavefront streaming: a chunk's paths stream through `lanes`
     # lanes; a lane whose path dies immediately loads the next one.
     streamed: bool = True
@@ -47,10 +54,29 @@ def _ckpt_key(cfg: RenderConfig, cam, spp: int, scene_hash: str) -> str:
     )
 
 
+def _camera_rays(cam, spp, start, n, seed, dtype, dev):
+    """Camera rays of paths [start, start+n): pixel-major, sample-minor."""
+    lin = start + torch.arange(n, dtype=torch.int64, device=dev)
+    pix = torch.div(lin, spp, rounding_mode="floor")
+    return cam_mod.generate_rays(
+        cam, pix % cam.width, torch.div(pix, cam.width, rounding_mode="floor"), lin % spp,
+        seed, dtype)
+
+
+def _add_pixel_sums(film_acc, sums, spp, start):
+    """Box filter at radius 0.5 puts every sample in its own pixel and paths are
+    pixel-major, so a chunk's per-pixel sums add to contiguous film rows."""
+    n_px = sums.shape[0]
+    pix0 = start // spp
+    flat = film_acc.view(-1, 4)
+    flat[pix0:pix0 + n_px, :3] += sums
+    flat[pix0:pix0 + n_px, 3] += spp
+    return film_acc
+
+
 def _chunk_streamed(tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, lanes,
                     start, n, film_acc, stats):
     """Paths [start, start+n) through trace_streamed, accumulated into film_acc."""
-    dtype = film_acc.dtype
     use_px_sums = film_cfg.is_pixel_box and n % spp == 0
     radiance, rays = pt.trace_streamed(
         tables, meta, ptcfg, cam, spp, start, n, min(lanes, n),
@@ -58,33 +84,15 @@ def _chunk_streamed(tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, lanes
     )
     stats["rays"] = stats.get("rays", 0) + rays
     if use_px_sums:
-        # Box filter at radius 0.5 puts every sample in its own pixel and paths
-        # are pixel-major, so the chunk's pixel sums add to contiguous film rows.
-        n_px = n // spp
-        pix0 = start // spp
-        flat = film_acc.view(-1, 4)
-        flat[pix0:pix0 + n_px, :3] += radiance
-        flat[pix0:pix0 + n_px, 3] += spp
-        return film_acc
-    dev = film_acc.device
-    lin = start + torch.arange(n, dtype=torch.int64, device=dev)
-    pix = torch.div(lin, spp, rounding_mode="floor")
-    rays_ = cam_mod.generate_rays(
-        cam, pix % cam.width, torch.div(pix, cam.width, rounding_mode="floor"), lin % spp,
-        ptcfg.global_seed, dtype)
+        return _add_pixel_sums(film_acc, radiance, spp, start)
+    rays_ = _camera_rays(cam, spp, start, n, ptcfg.global_seed, film_acc.dtype, film_acc.device)
     return film_acc + film_mod.splat(film_cfg, rays_.px, radiance)
 
 
 def _chunk_plain(tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, start, n,
                  film_acc, stats):
     """Paths [start, start+n) as one batch of camera rays through trace."""
-    dtype = film_acc.dtype
-    dev = film_acc.device
-    lin = start + torch.arange(n, dtype=torch.int64, device=dev)
-    pix = torch.div(lin, spp, rounding_mode="floor")
-    rays = cam_mod.generate_rays(
-        cam, pix % cam.width, torch.div(pix, cam.width, rounding_mode="floor"), lin % spp,
-        ptcfg.global_seed, dtype)
+    rays = _camera_rays(cam, spp, start, n, ptcfg.global_seed, film_acc.dtype, film_acc.device)
     radiance, st = pt.trace(
         tables, meta, ptcfg, rays.origin, rays.direction, rays.pixel_index, rays.sample_index,
         intersect_fn=intersect_fn, return_stats=True,
@@ -92,6 +100,61 @@ def _chunk_plain(tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, start, n
     stats["rays"] = stats.get("rays", 0) + st["rays"]
     stats["bounce_steps"] = stats.get("bounce_steps", 0) + st["bounce_steps"]
     return film_acc + film_mod.splat(film_cfg, rays.px, radiance)
+
+
+def _chunk_pm_streamed(tables, meta, pmcfg, maps, cam, film_cfg, intersect_fn, spp, lanes,
+                       start, n, film_acc, stats):
+    """Paths [start, start+n) through the photon mapper's trace_streamed."""
+    radiance = pm.trace_streamed(tables, meta, pmcfg, maps, cam, spp, start, n, min(lanes, n),
+                                 intersect_fn=intersect_fn, stats=stats)
+    if film_cfg.is_pixel_box and n % spp == 0:
+        return _add_pixel_sums(film_acc, radiance.view(n // spp, spp, 3).sum(dim=1), spp, start)
+    rays = _camera_rays(cam, spp, start, n, pmcfg.global_seed, film_acc.dtype, film_acc.device)
+    return film_acc + film_mod.splat(film_cfg, rays.px, radiance)
+
+
+def _chunk_pm_plain(tables, meta, pmcfg, maps, cam, film_cfg, intersect_fn, spp, start, n,
+                    film_acc, stats):
+    """Paths [start, start+n) as one batch of camera rays through the photon
+    mapper's trace."""
+    rays = _camera_rays(cam, spp, start, n, pmcfg.global_seed, film_acc.dtype, film_acc.device)
+    radiance = pm.trace(tables, meta, pmcfg, maps, rays.origin, rays.direction,
+                        rays.pixel_index, rays.sample_index, intersect_fn=intersect_fn,
+                        stats=stats)
+    return film_acc + film_mod.splat(film_cfg, rays.px, radiance)
+
+
+def _photon_maps(scene, tables, meta, pmcfg, cam, cfg, intersect_fn, checkpoint_dir,
+                 verbose, stats):
+    """The photon maps: loaded from `checkpoint_dir` when it holds a matching
+    pair, else built (and saved there). The reference rebuilds its maps every
+    run (photon-mapper.cpp:24-232)."""
+    device = tables.tri_v0.device
+    paths = None
+    if checkpoint_dir is not None:
+        key = hashlib.sha1(repr((pmcfg, cam.width, cam.height, meta, cfg.dtype,
+                                 scene.content_hash())).encode()).hexdigest()[:16]
+        pm_dir = pathlib.Path(checkpoint_dir)
+        pm_dir.mkdir(parents=True, exist_ok=True)
+        paths = (pm_dir / f"photons_caustic_{key}.npz", pm_dir / f"photons_global_{key}.npz")
+        if all(p.exists() for p in paths):
+            try:
+                maps = pm.PhotonMaps(caustic=pgrid.load_photon_grid(paths[0], device),
+                                     global_=pgrid.load_photon_grid(paths[1], device))
+                stats["photon_maps_loaded"] = True
+                if verbose:
+                    print("Resumed photon maps from checkpoint")
+                return maps
+            except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+                pass  # corrupt or foreign checkpoint: rebuild
+    t0 = time.perf_counter()
+    maps = pm.build_photon_maps(tables, meta, pmcfg, scene, intersect_fn, verbose=verbose,
+                                stats=stats)
+    stats["photon_pass_s"] = time.perf_counter() - t0
+    if paths is not None:
+        pgrid.save_photon_grid(paths[0], maps.caustic)
+        pgrid.save_photon_grid(paths[1], maps.global_)
+    return maps
 
 
 def render(
@@ -102,6 +165,7 @@ def render(
     checkpoint_dir=None,
     checkpoint_every_s: float = 30.0,
     stats: dict | None = None,
+    verbose: bool = False,
 ):
     """Render one camera of a scene. Returns the linear HDR image (H, W, 3) as
     float64 numpy.
@@ -110,14 +174,15 @@ def render(
     "cpu" to render on the CPU.
     checkpoint_dir: if set, the film accumulator and progress counter are saved
     there periodically and a matching checkpoint is resumed; a mismatched one
-    (other resolution/spp/seed/scene) is ignored.
-    stats: if a dict, receives "chunks", "rays" (a device count) and
-    "bounce_steps" (host synchronisations of the bounce loops).
+    (other resolution/spp/seed/scene) is ignored. Photon maps are saved there
+    too, and reused by a render with the same photon settings.
+    stats: if a dict, receives "chunks" and "bounce_steps" (host
+    synchronisations of the bounce loops); the path tracer adds "rays" (a
+    device count), the photon mapper "photons_caustic", "photons_global",
+    "photon_pass_s", "emission_steps" and the k-NN counts of photon_grid.knn.
+    verbose: print the photon emission and a per-chunk progress line.
     """
-    if cfg.integrator == "photon_mapper":
-        raise NotImplementedError(
-            "the photon mapper is not ported yet (port slice 3); use the JAX package")
-    if cfg.integrator != "path_tracer":
+    if cfg.integrator not in ("path_tracer", "photon_mapper"):
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
     device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
@@ -128,10 +193,33 @@ def render(
 
     tables = scene.tables(dtype, device)
     meta = scene.meta()
-    ptcfg = pt.PTConfig(max_bounces=cfg.max_bounces, global_seed=cfg.global_seed)
     film_cfg = film_mod.FilmConfig.from_json(cam.width, cam.height, cam.film)
     cbvh = scene.build_cluster_bvh(np.dtype(cfg.dtype), device)
     intersect_fn = cluster_bvh.make_intersect_fn(tables, meta, cbvh) if cbvh is not None else None
+
+    if cfg.integrator == "photon_mapper":
+        pmcfg = pm.PMConfig.from_json(scene.photon_map_config, max_eye_bounces=cfg.max_bounces,
+                                      global_seed=cfg.global_seed)
+        maps = _photon_maps(scene, tables, meta, pmcfg, cam, cfg, intersect_fn, checkpoint_dir,
+                            verbose, stats)
+        stats["photons_caustic"] = maps.caustic.n_photons
+        stats["photons_global"] = maps.global_.n_photons
+        if cfg.streamed:
+            run_chunk = lambda start, n, acc: _chunk_pm_streamed(
+                tables, meta, pmcfg, maps, cam, film_cfg, intersect_fn, spp, cfg.lanes,
+                start, n, acc, stats)
+        else:
+            run_chunk = lambda start, n, acc: _chunk_pm_plain(
+                tables, meta, pmcfg, maps, cam, film_cfg, intersect_fn, spp, start, n, acc, stats)
+    else:
+        ptcfg = pt.PTConfig(max_bounces=cfg.max_bounces, global_seed=cfg.global_seed)
+        if cfg.streamed:
+            run_chunk = lambda start, n, acc: _chunk_streamed(
+                tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, cfg.lanes,
+                start, n, acc, stats)
+        else:
+            run_chunk = lambda start, n, acc: _chunk_plain(
+                tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, start, n, acc, stats)
 
     n_pix = cam.width * cam.height
     total = n_pix * spp
@@ -152,6 +240,8 @@ def render(
                 if str(z["key"]) == key and int(z["done"]) <= total:
                     film_acc = torch.as_tensor(z["film"], dtype=dtype, device=device).clone()
                     done = int(z["done"])
+                    if verbose:
+                        print(f"Resumed checkpoint at {done}/{total} camera rays")
             except (OSError, ValueError, KeyError):
                 pass  # corrupt or foreign checkpoint: start fresh
 
@@ -163,22 +253,41 @@ def render(
         tmp.replace(ckpt_path)  # atomic on POSIX
 
     last_ckpt = time.monotonic()
+    # Progress (reference progress thread, camera.cpp:183-226): a moving
+    # average of camera rays/s over the last 32 chunks, and the ETA.
+    recent = [(last_ckpt, done)]
     stats["chunks"] = 0
     while done < total:
         n = min(chunk, total - done)
-        if cfg.streamed:
-            film_acc = _chunk_streamed(tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp,
-                                       cfg.lanes, done, n, film_acc, stats)
-        else:
-            film_acc = _chunk_plain(tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp,
-                                    done, n, film_acc, stats)
+        film_acc = run_chunk(done, n, film_acc)
         done += n
         stats["chunks"] += 1
         if ckpt_path is not None and time.monotonic() - last_ckpt > checkpoint_every_s:
             save_ckpt()
             last_ckpt = time.monotonic()
+        if verbose:
+            if film_acc.is_cuda:
+                torch.cuda.synchronize(film_acc.device)
+            now = time.monotonic()
+            recent = (recent + [(now, done)])[-32:]
+            dt = now - recent[0][0]
+            rate = (done - recent[0][1]) / dt if dt > 0 else 0.0
+            eta = (total - done) / rate if rate > 0 else float("inf")
+            print(f"\r{done}/{total} camera rays | {rate / 1e6:.2f} M rays/s | ETA {eta:.0f}s   ",
+                  end="", flush=True)
+    if verbose:
+        print()
     save_ckpt()
 
     img = film_mod.scan(film_acc)
     return img.cpu().numpy().astype(np.float64)
 
+
+def render_to_file(scene: Scene, out_path, camera_idx: int = 0, cfg: RenderConfig = RenderConfig(),
+                   device=None):
+    """Render, tonemap as the camera's image block says, and write a TGA.
+    Returns the linear HDR image."""
+    hdr = render(scene, camera_idx, cfg, device=device)
+    cam = scene.cameras[camera_idx]
+    image_mod.write_tga(out_path, image_mod.finalize(hdr, cam.image))
+    return hdr

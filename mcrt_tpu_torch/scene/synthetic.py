@@ -30,10 +30,13 @@ def make_displaced_grid(n: int):
     return v0, e1, e2
 
 
-def height_field_scene(n: int, width: int, sqrtspp: int, as_lists: bool = False) -> dict:
+def height_field_scene(n: int, width: int, sqrtspp: int, as_lists: bool = False,
+                       photon_map: dict | None = None) -> dict:
     """Scene JSON (a dict) with a 2 n^2-triangle height field, rendered by one
     camera at width x width and sqrtspp^2 samples per pixel. Arrays are numpy
-    unless `as_lists` (plain JSON values)."""
+    unless `as_lists` (plain JSON values). `photon_map`, if given, is the
+    scene's "photon_map" block (emissions, caustic_factor, ...), which the
+    photon mapper reads."""
     xs = np.linspace(0.0, 10.0, n + 1)
     gx, gz = np.meshgrid(xs, xs, indexing="ij")
     gy = 0.5 * np.sin(gx * 2.1) * np.cos(gz * 1.7)
@@ -45,7 +48,9 @@ def height_field_scene(n: int, width: int, sqrtspp: int, as_lists: bool = False)
     centroid_x = verts[tris].mean(axis=1)[:, 0]
     left, right = tris[centroid_x < 5.0], tris[centroid_x >= 5.0]
     conv = (lambda x: x.tolist()) if as_lists else (lambda x: x)
+    extra = {} if photon_map is None else {"photon_map": dict(photon_map)}
     return {
+        **extra,
         "ior": 1.0,
         "bvh": {"type": "binary_sah"},
         "cameras": [{

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
 and its entry points never run on the CPU unless asked to."""
 import ast
+import json
 import pathlib
 
 import numpy as np
@@ -8,7 +9,9 @@ import pytest
 import torch
 
 import mcrt_tpu_torch as mt
-from mcrt_tpu_torch import convert
+from mcrt_tpu_torch import cli, convert
+from mcrt_tpu_torch.accel import knn_kernel as kk
+from mcrt_tpu_torch.accel import photon_grid as pg
 from mcrt_tpu_torch.ops import traverse_kernel as tk
 from mcrt_tpu_torch.scene.synthetic import height_field_scene
 
@@ -38,7 +41,9 @@ def test_port_file_imports_no_jax(path):
 def test_scan_covers_the_package():
     names = {p.relative_to(ROOT / "mcrt_tpu_torch").as_posix() for p in PORT_FILES[:-1]}
     for must in ("render.py", "scene/loader.py", "ops/cluster_bvh.py", "ops/traverse_kernel.py",
-                 "integrator/path_tracer.py", "sampling/sobol.py", "convert.py"):
+                 "integrator/path_tracer.py", "sampling/sobol.py", "convert.py",
+                 "accel/photon_grid.py", "accel/knn_kernel.py", "integrator/photon_mapper.py",
+                 "cli.py", "__main__.py"):
         assert must in names
 
 
@@ -47,17 +52,36 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+PHOTONS = {"emissions": 200, "caustic_factor": 2.0, "k_nearest_photons": 8}
+
+
 @pytest.fixture(scope="module")
 def small_scene():
-    return mt.Scene(height_field_scene(4, 8, 1))
+    return mt.Scene(height_field_scene(4, 8, 1, photon_map=PHOTONS))
 
 
-@pytest.mark.parametrize("entry", ["render", "tables", "cluster_bvh", "tables_from_numpy",
-                                   "cluster_bvh_from_numpy"])
-def test_entry_points_refuse_cpu_without_request(no_cuda, small_scene, entry):
+@pytest.mark.parametrize("entry", ["render", "photon_render", "render_to_file", "cli", "tables",
+                                   "cluster_bvh", "tables_from_numpy", "cluster_bvh_from_numpy",
+                                   "photon_grid", "photon_grid_from_numpy", "load_photon_grid",
+                                   "knn"])
+def test_entry_points_refuse_cpu_without_request(no_cuda, small_scene, entry, tmp_path):
     s = small_scene
+    z3 = np.zeros((4, 3))
+    grid = lambda: pg.build_photon_grid(np.random.RandomState(0).rand(64, 3), z3[:1].repeat(64, 0),
+                                        z3[:1].repeat(64, 0), 4, device="cpu")
+    scene_file = tmp_path / "s.json"
+    scene_file.write_text(json.dumps(height_field_scene(4, 8, 1, as_lists=True, photon_map=PHOTONS)))
     calls = {
         "render": lambda: mt.render(s, 0, mt.RenderConfig()),
+        "photon_render": lambda: mt.render(s, 0, mt.RenderConfig(integrator="photon_mapper")),
+        "render_to_file": lambda: mt.render_to_file(s, tmp_path / "o.tga"),
+        "cli": lambda: cli.main(["--scene", str(scene_file), "--photon-map", "--quiet",
+                                 "--out", str(tmp_path / "o.tga")]),
+        "photon_grid": lambda: pg.build_photon_grid(z3, z3, z3, 4),
+        "photon_grid_from_numpy": lambda: convert.photon_grid_from_numpy(
+            z3, z3, z3, np.zeros(2), np.zeros(3), 1.0, (1, 1, 1), 8, 4),
+        "load_photon_grid": lambda: pg.load_photon_grid(_saved_grid(tmp_path, grid())),
+        "knn": lambda: kk.knn(grid(), grid().arrays, torch.zeros((2, 3), device="meta"), 4),
         "tables": lambda: s.tables(np.float32),
         "cluster_bvh": lambda: s.build_cluster_bvh(np.float32),
         "tables_from_numpy": lambda: convert.tables_from_numpy(s.table_arrays()),
@@ -65,8 +89,18 @@ def test_entry_points_refuse_cpu_without_request(no_cuda, small_scene, entry):
             np.zeros((1, 3)), np.ones((1, 3)), np.zeros(1, np.int32), np.ones(1, np.int32),
             np.zeros(1, np.int32), s.tri_v0, s.tri_e1, s.tri_e2),
     }
+    if entry == "knn":   # a tensor on no device the wrapper serves: it raises, never falls back
+        with pytest.raises(ValueError, match="unsupported device"):
+            calls[entry]()
+        return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+def _saved_grid(tmp_path, grid):
+    path = tmp_path / "grid.npz"
+    pg.save_photon_grid(path, grid)
+    return path
 
 
 def test_explicit_cpu_request_runs(no_cuda, small_scene):
@@ -84,6 +118,38 @@ def test_traverse_wrapper_never_falls_back(small_scene):
         tk.traverse(cbvh, o, o)
 
 
-def test_photon_mapper_not_ported(small_scene):
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        mt.render(small_scene, 0, mt.RenderConfig(integrator="photon_mapper"), device="cpu")
+def test_photon_render_runs_on_cpu_request(no_cuda, small_scene):
+    stats = {}
+    img = mt.render(small_scene, 0, mt.RenderConfig(integrator="photon_mapper", max_bounces=4),
+                    device="cpu", stats=stats)
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all() and img.min() >= 0.0
+    assert stats["photons_global"] > 0 and stats["bounce_steps"] > 0
+
+
+def test_knn_wrapper_takes_cpu_tensors_to_the_plain_version():
+    """On the CPU the k-NN wrapper runs knn_plain and launches nothing."""
+    rng = np.random.RandomState(1)
+    p = rng.rand(500, 3)
+    grid = pg.build_photon_grid(p, p, p, 8, device="cpu")
+    q = torch.as_tensor(rng.rand(40, 3), dtype=torch.float32)
+    before = kk.kernel.launches
+    a = kk.knn(grid, grid.arrays, q, 8)
+    b = kk.knn_plain(grid, grid.arrays, q, 8)
+    assert kk.kernel.launches == before and kk.kernel.lib is None
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_exact_knn_refuses_float64_on_the_card(monkeypatch):
+    """float64 exact queries on a CUDA tensor raise (the kernel is float32);
+    checked with a stand-in tensor that reports a CUDA device."""
+    p = np.random.RandomState(2).rand(100, 3)
+    grid = pg.build_photon_grid(p, p, p, 8, np.float64, device="cpu")
+
+    class CudaLike:
+        device = torch.device("cuda", 0)
+        dtype = torch.float64
+        shape = (4, 3)
+
+    with pytest.raises(ValueError, match="float32"):
+        pg.knn(grid, grid.arrays, CudaLike(), 8, exact=True)
