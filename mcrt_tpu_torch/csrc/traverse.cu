@@ -14,12 +14,15 @@
 //      whole (K, C) matrix in VMEM; that is megabytes, far over the 227 KB of
 //      shared memory a block can have, so it lives in L2 / device memory here,
 //      and compaction keeps the part the rounds touch small.
-//   2. Rounds: each warp computes the keys of a share of the remaining
-//      candidates (a coalesced read of one K-wide column per candidate, a
-//      compare with the rays' best t kept in shared memory, a warp min); the
-//      block takes the least (key, cluster id). A candidate whose key is BIG
-//      can never come back (best t only shrinks) and is dropped; the visited
-//      one is swap-removed from the compact list. The chosen cluster's record
+//   2. Rounds, in the TPU kernel's order: each round first chooses the NEXT
+//      cluster from the rays' best t of before the current visit, then
+//      evaluates the current one. To choose, each warp computes the keys of a
+//      share of the remaining candidates (a coalesced read of one K-wide
+//      column per candidate, a compare with the rays' best t kept in shared
+//      memory, a warp min); the block takes the least (key, cluster id). A
+//      candidate whose key is BIG
+//      can never come back (best t only shrinks) and is dropped; the chosen
+//      one is swap-removed from the compact list. The current cluster's record
 //      (Sp x 20 floats of form coefficients) and its int32 triangle ids are
 //      staged in shared memory, and every thread evaluates the forms of the
 //      cluster's real triangles (padding sits at the tail) for its ray.
@@ -148,10 +151,13 @@ __global__ void traverse_kernel(const float4* __restrict__ rays,   // (B*K, 3) f
   const int ncand = s_ncand;
 
   // ---- 2. best-first rounds ----
+  // Each round chooses the NEXT cluster from s_bt, the rays' best t of before
+  // the current visit, then evaluates the current one (the TPU kernel's order).
   float bt = kBig, bu = 0.0f, bv = 0.0f;
   int bid = -1;
   s_bt[k] = bt;
   int n_active = ncand, rounds = 0;
+  int cur = -1;  // the cluster this round evaluates, chosen a round earlier
   for (;;) {
     __syncthreads();
     float wkey = kBig;
@@ -185,21 +191,28 @@ __global__ void traverse_kernel(const float4* __restrict__ rays,   // (B*K, 3) f
       s_kmin = kmin; s_cl = cl; s_j = jj;
     }
     __syncthreads();
-    if (!(s_kmin < kBig)) break;
-    const int cl = s_cl, j = s_j;
+    const bool next_live = s_kmin < kBig;
+    const int next = s_cl, j = s_j;
+    if (next_live) {
+      // Swap-remove candidate j (each thread moves its own ray's entry).
+      const int last = n_active - 1;
+      if (j != last) {
+        tn_b[static_cast<size_t>(j) * K + k] = tn_b[static_cast<size_t>(last) * K + k];
+        if (k == 0) cand_b[j] = cand_b[last];
+      }
+      n_active = last;
+    }
+    if (cur < 0) {  // the first choice: nothing to evaluate yet
+      if (!next_live) break;
+      cur = next;
+      continue;
+    }
     ++rounds;
 
-    // Stage the chosen cluster's record and ids.
-    const float4* src = rec + static_cast<size_t>(cl) * Sp * 5;
+    // Stage the current cluster's record and ids.
+    const float4* src = rec + static_cast<size_t>(cur) * Sp * 5;
     for (int e = k; e < Sp * 5; e += K) s_rec[e] = src[e];
-    for (int e = k; e < Sp; e += K) s_tri[e] = tri[static_cast<size_t>(cl) * Sp + e];
-    // Swap-remove candidate j (each thread moves its own ray's entry).
-    const int last = n_active - 1;
-    if (j != last) {
-      tn_b[static_cast<size_t>(j) * K + k] = tn_b[static_cast<size_t>(last) * K + k];
-      if (k == 0) cand_b[j] = cand_b[last];
-    }
-    n_active = last;
+    for (int e = k; e < Sp; e += K) s_tri[e] = tri[static_cast<size_t>(cur) * Sp + e];
     __syncthreads();
 
     // Moller-Trumbore forms of every triangle of the cluster for this ray.
@@ -225,7 +238,9 @@ __global__ void traverse_kernel(const float4* __restrict__ rays,   // (B*K, 3) f
       if (ok) { tb = t; sb = id; ub = u; vb = v; }
     }
     if (sb >= 0) { bt = tb; bid = sb; bu = ub; bv = vb; }
+    if (!next_live) break;
     s_bt[k] = bt;
+    cur = next;
   }
 
   out_t[ray] = bt;

@@ -7,13 +7,18 @@ For one block of K coherence-sorted rays both versions compute:
   1. CULL: slab-test every cluster AABB, giving each (ray, cluster) entry
      distance (BIG = miss). A cluster some ray of the block hits is a
      candidate; `candidates` counts them.
-  2. ROUNDS: while some unvisited candidate could still improve some ray, visit
-     the one with the smallest key, where a cluster's key is the least entry
-     distance among the rays whose entry lies below their current best t (exact
-     per-ray pruning; ties go to the lower cluster index). A visit evaluates the
-     cluster's Moller-Trumbore forms for every ray of the block and keeps, per
-     ray, the nearest valid hit: the first minimum within a cluster, and a
-     strict `t < best` across clusters. `rounds` counts visits.
+  2. ROUNDS: a cluster's key is the least entry distance among the rays whose
+     entry lies below their best t (exact per-ray pruning); BIG when there is
+     none. The first cluster is the candidate of least key with every best t at
+     BIG. Then, each round, the NEXT cluster is chosen and marked visited from
+     the best t of before the current visit, and only then is the current
+     cluster evaluated: the TPU kernel's order, whose choice is one round stale
+     so that the next record can be in flight while the current one is
+     evaluated. Ties go to the lower cluster index. The rounds stop when the
+     current choice's key is BIG. A visit evaluates the cluster's
+     Moller-Trumbore forms for every ray of the block and keeps, per ray, the
+     nearest valid hit: the first minimum within a cluster, and a strict
+     `t < best` across clusters. `rounds` counts visits.
 
 Per ray the result is (t, tri_id, u, v) of the closest hit (BIG, -1, 0, 0 on a
 miss); per block [candidates, rounds], with the same meaning as the TPU
@@ -212,24 +217,33 @@ def _plain(cbvh, origin, direction):
         tn[..., c0:c0 + TILE] = torch.where(hit, tnear, big)
     n_cand = (tn.amin(dim=1) < big).sum(dim=1)
 
-    # ---- 2. best-first rounds ----
+    # ---- 2. best-first rounds, in the TPU kernel's order: the next cluster is
+    # chosen from the best t of before the current visit ----
     visited = torch.zeros((B, C), dtype=torch.bool, device=dev)
     rounds = torch.zeros(B, dtype=torch.int64, device=dev)
     bt = torch.full((B, K), BIG, dtype=fdt, device=dev)
     bid = torch.full((B, K), -1, dtype=torch.int32, device=dev)
     bu = torch.zeros((B, K), dtype=fdt, device=dev)
     bv = torch.zeros((B, K), dtype=fdt, device=dev)
-    for _ in range(C):
+
+    def choose(live):
+        """Per block the unvisited cluster of least key (first minimum), marked
+        visited where it is live; (cluster, live)."""
         key = torch.where(tn < bt[..., None], tn, big).amin(dim=1)       # (B, C)
-        key = key.masked_fill(visited, BIG)
-        kmin, cl = torch.min(key, dim=1)                                  # first minimum
-        live = kmin < big
+        kmin, cl = torch.min(key.masked_fill(visited, BIG), dim=1)
+        live = live & (kmin < big)
+        lb = torch.nonzero(live).squeeze(1)
+        visited[lb, cl[lb]] = True
+        return cl, live
+
+    cl, live = choose(torch.ones(B, dtype=torch.bool, device=dev))
+    for _ in range(C):
         if not bool(live.any()):
             break
         lb = torch.nonzero(live).squeeze(1)
         c = cl[lb]
-        visited[lb, c] = True
         rounds += live
+        cl, live = choose(live)
         rec = cbvh.rec[c][:, None]                                        # (L, 1, Sp, W)
         tri = cbvh.tri[c][:, None]                                        # (L, 1, Sp)
         r = lambda i: rec[..., i]

@@ -7,6 +7,7 @@ t within rtol 5e-6, u/v within atol 5e-3 (u/v pick up global-frame rounding and
 only seed refine_tri_hit), and per-block [candidates, rounds] equal to the
 Pallas kernel's. The kernel itself is held to the plain version on the card by
 tests/test_torch_kernel_on_card.py."""
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -29,14 +30,34 @@ from mcrt_tpu.scene import loader as jl  # noqa: E402
 torch.set_num_threads(1)  # pytest-xdist runs several workers on the same cores
 
 
-@pytest.fixture(scope="module")
-def grid():
-    """~2k-triangle displaced grid, its fat-leaf BVH in both packages' forms."""
-    (v0, e1, e2), flat = grid_mesh()
+@functools.lru_cache(maxsize=None)
+def _grid_bvhs(n):
+    """A 2 n^2-triangle displaced grid's fat-leaf BVH in both packages' forms."""
+    (v0, e1, e2), flat = grid_mesh(n)
     jb = jcb.upload_cluster_bvh(flat, SimpleNamespace(tri_v0=v0, tri_e1=e1, tri_e2=e2), np.float32)
     tb = convert.cluster_bvh_from_numpy(flat.bb_min, flat.bb_max, flat.first, flat.count,
                                         flat.prim_order, v0, e1, e2, "cpu", np.float32)
     return jb, tb
+
+
+@pytest.fixture(scope="module")
+def grid():
+    """~2k-triangle displaced grid, its fat-leaf BVH in both packages' forms."""
+    return _grid_bvhs(32)
+
+
+def _assert_matches_pallas(jb, tb, o, d):
+    """The plain version against the Pallas kernel at this file's bars; returns
+    (tri ids, per-block stats)."""
+    pt, pid, pu, pv, pst = _pallas(jb, o, d)
+    t, tid, u, v, st = (x.numpy() for x in tk.traverse(tb, torch.as_tensor(o), torch.as_tensor(d)))
+    np.testing.assert_array_equal(tid, pid)
+    hit = pid >= 0
+    np.testing.assert_allclose(t[hit], pt[hit], rtol=5e-6)
+    np.testing.assert_allclose(u[hit], pu[hit], atol=5e-3)
+    np.testing.assert_allclose(v[hit], pv[hit], atol=5e-3)
+    np.testing.assert_array_equal(st, pst)
+    return tid, st
 
 
 def _pallas(jb, o, d, block=256):
@@ -58,21 +79,26 @@ def _pallas(jb, o, d, block=256):
 @pytest.mark.parametrize("kind", ["camera", "random", "axis", "parked", "mixed"])
 def test_plain_matches_pallas_interpret(grid, kind):
     jb, tb = grid
-    o, d = ray_set(kind)
-    pt, pid, pu, pv, pst = _pallas(jb, o, d)
-    t, tid, u, v, st = (x.numpy() for x in tk.traverse(tb, torch.as_tensor(o), torch.as_tensor(d)))
-    np.testing.assert_array_equal(tid, pid)
-    hit = pid >= 0
-    np.testing.assert_allclose(t[hit], pt[hit], rtol=5e-6)
-    np.testing.assert_allclose(u[hit], pu[hit], atol=5e-3)
-    np.testing.assert_allclose(v[hit], pv[hit], atol=5e-3)
-    np.testing.assert_array_equal(st, pst)
+    tid, st = _assert_matches_pallas(jb, tb, *ray_set(kind))
+    hit = tid >= 0
     if kind == "parked":
         assert (tid == -1).all() and st[:, 1].max() == 0
     elif kind == "mixed":
         assert (tid[::2] == -1).all() and hit.sum() > 100
     else:
         assert hit.sum() > 100
+
+
+@pytest.mark.parametrize("n, kind", [(64, "random"), (64, "camera"), (96, "random"), (96, "mixed")])
+def test_plain_stats_match_pallas_when_pruning(n, kind):
+    """The visit order. The Pallas kernel chooses the next cluster from the
+    best t of before the current visit (one round stale), so blocks that prune
+    visit other clusters, and run other rounds, than a choice from fresh best t
+    would. At n=32 every block visits every cluster and cannot tell the two
+    apart; these grids have blocks that prune."""
+    jb, tb = _grid_bvhs(n)
+    _, st = _assert_matches_pallas(jb, tb, *ray_set(kind, n=1024, seed=3))
+    assert (st[:, 1] < st[:, 0]).any(), "no block pruned a candidate"
 
 
 @pytest.mark.parametrize("kind", ["camera", "random", "axis"])
