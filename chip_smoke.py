@@ -8,17 +8,22 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases (each prints its own lines; any failed check exits non-zero):
   1. device   the card's name and power limit (nvidia-smi); no card, no run
   2. build    nvcc builds both kernels, mcrt_tpu_torch/csrc/traverse.cu and
-              csrc/knn.cu, in parallel, and prints ptxas's register and spill lines
+              csrc/knn.cu (and the parent's traverse.cu when OLD_TRAVERSE exists),
+              in parallel, and prints ptxas's register and spill lines
   3. kernel   the traversal kernel against its plain PyTorch version on the card, on camera
-              rays, random rays from surface points, a parked block and mixed
-              live/dead blocks: ids identical, t within rtol 5e-6, u/v within
-              atol 5e-3, per-block stats identical, parked block zero rounds;
-              then kernel and plain timed at the main path's launch shape, and
-              the bound counted from the clusters each block visits
+              rays, random rays from surface points, shadow rays, a parked block
+              and mixed live/dead blocks: ids, t, u, v and per-block stats
+              identical bit for bit, parked block zero rounds; then, per set at
+              the main path's launch shape, kernel and plain timed (and the
+              parent's kernel in turns with this one: old, new, new, old), the
+              candidates and rounds per block, the share of SMs that hold a
+              block, the bound counted from the clusters each block visits, and
+              the split of a launch's clock64() cycles per block
   4. render   mcrt_tpu_torch.render of the height-field scene at 512x512, 16 spp,
               max_bounces 64, default RenderConfig, with the kernel's launch count
-              reset before and read after; then a profiled 1-spp render for the
-              kernel's share of device time
+              reset before and read after (and, given the parent's kernel, the
+              same render through it and through this one in turns); then a
+              profiled 1-spp render for the kernel's share of device time
   5. compare  the same scene at 64x64, 4 spp, through the kernel and through the
               plain traversal on the card, held to the golden-image bars
   6. photon   the photon mapper's main path: render(integrator="photon_mapper") of
@@ -43,6 +48,7 @@ and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import pathlib
@@ -81,6 +87,11 @@ PHOTON_MAP = {"emissions": 5e5, "caustic_factor": 10.0, "k_nearest_photons": 50,
 PM_SQRTSPP = 2
 KNN_QUERIES = 1 << 14
 ROOT = pathlib.Path(__file__).resolve().parent
+# The parent commit's traverse.cu, when one is handed in beside the checkout (it
+# is not part of the repo): phase 3 then times it in turns with this tree's
+# kernel, and takes its cycle split if it has a stamping entry point.
+OLD_TRAVERSE = ROOT / "chip_old" / "traverse.cu"
+PARENT_CYCLES = ("total", "cull", "select", "staging", "forms")
 
 
 def log(phase: str, msg: str):
@@ -140,6 +151,55 @@ def surface_rays(scene, n, rng, toward=None):
         d = toward[None, :] + 0.3 * rng.normal(size=(n, 3)) - o
         d /= np.linalg.norm(d, axis=1, keepdims=True)
     return o, d
+
+
+def load_parent_kernel(path):
+    """The parent's traversal kernel, built from `path` by nvcc like this tree's:
+    its C entry mcrt_traverse(11 pointers, B, K, C, Sp, stream) and, where it
+    has one, mcrt_traverse_cycles(the same, then a (B, 5) int64 array of
+    PARENT_CYCLES). None when the file is absent."""
+    from mcrt_tpu_torch.ops import traverse_kernel as tk
+
+    if not path.exists():
+        return None
+    lib = ctypes.CDLL(str(tk.compile_source(path, "traverse_parent")[0]))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.mcrt_traverse.argtypes = [vp] * 11 + [ci] * 4 + [vp]
+    lib.mcrt_traverse.restype = ci
+    if hasattr(lib, "mcrt_traverse_cycles"):
+        lib.mcrt_traverse_cycles.argtypes = [vp] * 11 + [ci] * 4 + [vp, vp]
+        lib.mcrt_traverse_cycles.restype = ci
+    return lib
+
+
+def parent_traverse(lib, cbvh, o, d, cycles=False):
+    """One launch of the parent's kernel, with its wrapper's scratch; returns
+    traverse's outputs (t, tri_id, u, v, stats) and the cycles or None."""
+    import torch
+
+    from mcrt_tpu_torch.ops import traverse_kernel as tk
+
+    ft, K = tk.ray_features(o, d)
+    B = ft.shape[0]
+    C, Sp, _ = cbvh.rec.shape
+    new = lambda shape, dt: torch.empty(shape, dtype=dt, device=o.device)
+    f32, i32 = torch.float32, torch.int32
+    outs = [new((B, C, K), f32), new((B, C), i32), new((B, K), f32), new((B, K), i32),
+            new((B, K), f32), new((B, K), f32), new((B, 2), i32)]
+    args = [ft.data_ptr(), cbvh.cl_bb.data_ptr(), cbvh.rec.data_ptr(), cbvh.tri.data_ptr(),
+            *(x.data_ptr() for x in outs), B, K, C, Sp, torch.cuda.current_stream().cuda_stream]
+    cy = torch.zeros((B, len(PARENT_CYCLES)), dtype=torch.int64, device=o.device) if cycles else None
+    err = lib.mcrt_traverse_cycles(*args, cy.data_ptr()) if cycles else lib.mcrt_traverse(*args)
+    check(err == 0, "kernel", f"the parent's kernel failed to launch: {err}")
+    return (*tk._unpad(o.shape[0], *outs[2:6]), outs[6]), cy
+
+
+def cycle_split(names, cycles) -> str:
+    """Mean clock64() cycles per block of each counter, as shares of the total."""
+    mean = cycles.double().mean(0).tolist()
+    total = mean[0]
+    return f"{total:.0f} cycles per block: " + ", ".join(
+        f"{n} {100 * x / total:.1f}%" for n, x in zip(names[1:], mean[1:]))
 
 
 def traversal_bound(tk, cbvh, o, d, stats):
@@ -382,56 +442,20 @@ def golden_phase(card):
           "golden", "the caustic render misses the reference's bars")
 
 
-def main() -> int:
-    # ---- 1. device ----
+def kernel_phase(scene, j, cbvh, card, parent, rng):
+    """Phase 3: the traversal kernel against its plain version on five ray sets,
+    then timed per set at the main path's launch shape. Returns the per-set
+    timing rows and the largest |kernel - plain| of t, u and v."""
+    import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        fail("device", "torch.cuda.is_available() is false: this run needs a CUDA card")
-    card = gpu_line()
-    kind = torch.cuda.get_device_name(0)
-    log("device", f"{card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-
-    import numpy as np
-
     import mcrt_tpu_torch as mt
-    from mcrt_tpu_torch.accel import knn_kernel as kk
     from mcrt_tpu_torch.camera import camera as cam_mod
-    from mcrt_tpu_torch.camera import image as image_mod
     from mcrt_tpu_torch.ops import cluster_bvh
     from mcrt_tpu_torch.ops import traverse_kernel as tk
-    from mcrt_tpu_torch.scene.synthetic import height_field_scene
 
-    # ---- 2. build: one nvcc per source, started together ----
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(m.build) for m in (tk, kk)]:
-            fut.result()
-    log("build", f"nvcc sm_90a builds + loads {time.perf_counter() - t0:.2f} s")
-    for name, m in (("traverse.cu", tk), ("knn.cu", kk)):
-        for line in m.kernel.build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log("build", f"{name}: {line.strip()}")
-
-    # ---- scene (shared by phases 3-5) ----
-    t0 = time.perf_counter()
-    # One scene for both integrators: the path tracer ignores the photon_map block.
-    j = height_field_scene(GRID_N, WIDTH, SQRTSPP, photon_map=PHOTON_MAP)
-    scene = mt.Scene(j)
-    t_parse = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cbvh = scene.build_cluster_bvh(np.float32, dev)
-    torch.cuda.synchronize()
-    t_bvh = time.perf_counter() - t0
-    C, Sp, _ = cbvh.rec.shape
-    log("scene", f"{scene.n_tris} triangles, {scene.n_sphs} spheres; parse {t_parse:.2f} s, "
-        f"cluster BVH {t_bvh:.2f} s: C={C} clusters, Sp={Sp}")
-
-    # ---- 3. kernel against plain ----
-    rng = np.random.default_rng(1234)
+    dev = cbvh.rec.device
+    Sp = cbvh.rec.shape[1]
     cam = scene.cameras[0]
     R = CHECK_RAYS
     pix = rng.integers(0, cam.width * cam.height, R)
@@ -477,7 +501,8 @@ def main() -> int:
             f"t_ok={t_ok} max|duv|={uv_err:.3g} stats_same={st_same} bitwise={bitwise} "
             f"candidates={int(kst[:, 0].sum())} rounds_sum={int(kst[:, 1].sum())} "
             f"rounds_max={int(kst[:, 1].max())}")
-        check(ids_same and t_ok and uv_err <= 5e-3 and st_same, "kernel", f"{name}: mismatch")
+        check(ids_same and t_ok and uv_err <= 5e-3 and st_same and bitwise, "kernel",
+              f"{name}: kernel and plain version differ")
         if name == "parked":
             check(int(kst[:, 1].max()) == 0 and bool((kid == -1).all()), "kernel",
                   "parked block ran rounds or hit")
@@ -486,22 +511,105 @@ def main() -> int:
 
     # Timing at the main path's launch shape: one call per `lanes` sorted rays.
     lanes = mt.RenderConfig().lanes
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     timing = {}
     kinds = ("camera", "surface", "shadow")
     for name in kinds:
         o, d = sorted_sets[name]
         o, d = o[:lanes].contiguous(), d[:lanes].contiguous()
-        ms = cuda_time_ms(lambda: tk.traverse(cbvh, o, d), reps=20, warmup=2)
+        run = lambda: tk.traverse(cbvh, o, d)
+        old_ms = None
+        if parent:   # in turns: old, new, new, old
+            run_old = lambda: parent_traverse(parent, cbvh, o, d)
+            t_old = [cuda_time_ms(run_old, reps=20, warmup=2)]
+            t_new = [cuda_time_ms(run, reps=20, warmup=2) for _ in range(2)]
+            t_old.append(cuda_time_ms(run_old, reps=20, warmup=2))
+            ms, old_ms = sum(t_new) / 2, sum(t_old) / 2
+        else:
+            ms = cuda_time_ms(run, reps=20, warmup=2)
         plain_ms = cuda_time_ms(lambda: tk.traverse_plain(cbvh, o, d), reps=2, warmup=1)
         *_, st = tk.traverse(cbvh, o, d)
         B = st.shape[0]
-        rounds = int(st[:, 1].sum())
+        cand, rnd = st[:, 0].double(), st[:, 1].double()
+        rounds = int(rnd.sum())
         bound_ms, by, tri_visits = traversal_bound(tk, cbvh, o, d, st)
         timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
-        log("kernel", f"time {name:8s} {lanes} rays, {B} blocks, {rounds} rounds, "
-            f"{tri_visits:.0f} real triangles visited ({tri_visits / (rounds * Sp):.4f} of "
-            f"the slots): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-            f"({by}), {ms / bound_ms:.1f}x the bound | {card}")
+        vs_old = "parent's kernel: not given"
+        if old_ms is not None:
+            vs_old = (f"parent's kernel {old_ms:.4f} ms ({t_old[0]:.4f}, {t_old[1]:.4f}; new "
+                      f"{t_new[0]:.4f}, {t_new[1]:.4f}), {old_ms / ms:.2f}x faster")
+        log("kernel", f"time {name:8s} {lanes} rays, {B} blocks on {n_sm} SMs ({100 * min(B, n_sm) / n_sm:.1f}% "
+            f"of SMs hold a block); candidates per block mean {float(cand.mean()):.1f} max "
+            f"{int(cand.max())}; rounds {rounds}, per block mean {float(rnd.mean()):.1f} max "
+            f"{int(rnd.max())}; {tri_visits:.0f} real triangles visited ({tri_visits / (rounds * Sp):.4f} "
+            f"of the slots): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+            f"({by}), {ms / bound_ms:.1f}x the bound; {vs_old} | {card}")
+        *_, cst, cyc = tk.traverse_cycles(cbvh, o, d)
+        check(torch.equal(cst, st), "kernel", "the stamping variant's stats differ")
+        log("kernel", f"cycles {name:8s} kernel: {cycle_split(tk.CYCLES, cyc)} (select, load and "
+            f"producer_wait are the producer warp's; staging_wait and forms a consumer's) | {card}")
+        if parent is not None and hasattr(parent, "mcrt_traverse_cycles"):
+            (*_, pst), pcyc = parent_traverse(parent, cbvh, o, d, cycles=True)
+            log("kernel", f"cycles {name:8s} parent's kernel: {cycle_split(PARENT_CYCLES, pcyc)}; "
+                f"rounds {int(pst[:, 1].sum())} | {card}")
+        torch.cuda.synchronize()
+    return timing, max_err
+
+
+def main() -> int:
+    # ---- 1. device ----
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("device", "torch.cuda.is_available() is false: this run needs a CUDA card")
+    card = gpu_line()
+    kind = torch.cuda.get_device_name(0)
+    log("device", f"{card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    import numpy as np
+
+    import mcrt_tpu_torch as mt
+    from mcrt_tpu_torch.accel import knn_kernel as kk
+    from mcrt_tpu_torch.camera import image as image_mod
+    from mcrt_tpu_torch.ops import traverse_kernel as tk
+    from mcrt_tpu_torch.scene.synthetic import height_field_scene
+
+    # ---- 2. build: one nvcc per source, started together ----
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        futs = [pool.submit(m.build) for m in (tk, kk)]
+        parent = pool.submit(load_parent_kernel, OLD_TRAVERSE)
+        for fut in futs:
+            fut.result()
+        parent = parent.result()
+    log("build", f"nvcc sm_90a builds + loads {time.perf_counter() - t0:.2f} s; parent's "
+        f"traverse.cu {'built' if parent else 'not given'}")
+    for name, m in (("traverse.cu", tk), ("knn.cu", kk)):
+        for line in m.kernel.build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log("build", f"{name}: {line.strip()}")
+
+    # ---- scene (shared by phases 3-5) ----
+    t0 = time.perf_counter()
+    # One scene for both integrators: the path tracer ignores the photon_map block.
+    j = height_field_scene(GRID_N, WIDTH, SQRTSPP, photon_map=PHOTON_MAP)
+    scene = mt.Scene(j)
+    t_parse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cbvh = scene.build_cluster_bvh(np.float32, dev)
+    torch.cuda.synchronize()
+    t_bvh = time.perf_counter() - t0
+    C, Sp, _ = cbvh.rec.shape
+    log("scene", f"{scene.n_tris} triangles, {scene.n_sphs} spheres; parse {t_parse:.2f} s, "
+        f"cluster BVH {t_bvh:.2f} s: C={C} clusters, Sp={Sp}")
+
+    # ---- 3. kernel against plain ----
+    rng = np.random.default_rng(1234)
+    cam = scene.cameras[0]
+    timing, max_err = kernel_phase(scene, j, cbvh, card, parent, rng)
 
     # ---- 4. main path at full size ----
     cfg = mt.RenderConfig(max_bounces=64)
@@ -526,6 +634,19 @@ def main() -> int:
     check(bool(np.isfinite(hdr).all()) and float(hdr.min()) >= 0.0, "render", "non-finite or negative")
     check(0.01 < float(hdr.mean()) < 100.0, "render", f"trivial image mean {hdr.mean()}")
     log("render", f"image mean {hdr.mean():.6f} min {hdr.min():.6f} max {hdr.max():.4f}")
+    if parent is not None:   # the same render through the parent's kernel, in turns
+        walls = {"parent's": [], "this": [wall]}
+        old = lambda cb, o, d: parent_traverse(parent, cb, o, d)[0]
+        for who in ("parent's", "this", "parent's"):
+            with mock.patch.object(tk, "traverse", old if who == "parent's" else tk.traverse):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                mt.render(scene, 0, cfg)
+                torch.cuda.synchronize()
+                walls[who].append(time.perf_counter() - t1)
+        log("render", "walls in turns (this, parent's, this, parent's): " + "; ".join(
+            f"{who} kernel {', '.join(f'{w:.3f}' for w in ws)} s" for who, ws in walls.items())
+            + f" | {card}")
 
     # Kernel share of device time, from a profiled 1-spp render of the same scene.
     from torch.autograd import DeviceType
@@ -575,7 +696,7 @@ def main() -> int:
         knn_row = knn_phase(scene, cam, card, rng, pm_dir)
     golden_phase(card)
 
-    mean = lambda key: sum(timing[k][key] for k in kinds) / len(kinds)
+    mean = lambda key: sum(r[key] for r in timing.values()) / len(timing)
     kernels = [{
         "name": "cluster_bvh_traverse",
         "route": "cuda",

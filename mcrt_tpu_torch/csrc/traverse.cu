@@ -4,277 +4,577 @@
 // (fused cull + best-first cluster traversal). What it computes, and its plain
 // PyTorch twin, are described in mcrt_tpu_torch/ops/traverse_kernel.py.
 //
-// Design. One CUDA block per K-ray block (K = blockDim.x, 256 on the main
-// path), one thread per ray.
-//   1. Cull: the block walks the cluster AABBs in tiles of 32 (staged in shared
-//      memory); each thread slab-tests its ray, a warp ballot plus a shared OR
-//      marks the clusters some ray hits, and only those candidates' entry
-//      distances are written, compacted, to a global scratch laid out
-//      (B, C, K) so a warp's 32 rays read and write coalesced. The TPU kept the
-//      whole (K, C) matrix in VMEM; that is megabytes, far over the 227 KB of
-//      shared memory a block can have, so it lives in L2 / device memory here,
-//      and compaction keeps the part the rounds touch small.
-//   2. Rounds, in the TPU kernel's order: each round first chooses the NEXT
-//      cluster from the rays' best t of before the current visit, then
-//      evaluates the current one. To choose, each warp computes the keys of a
-//      share of the remaining candidates (a coalesced read of one K-wide
-//      column per candidate, a compare with the rays' best t kept in shared
-//      memory, a warp min); the block takes the least (key, cluster id). A
-//      candidate whose key is BIG
-//      can never come back (best t only shrinks) and is dropped; the chosen
-//      one is swap-removed from the compact list. The current cluster's record
-//      (Sp x 20 floats of form coefficients) and its int32 triangle ids are
-//      staged in shared memory, and every thread evaluates the forms of the
-//      cluster's real triangles (padding sits at the tail) for its ray.
-//   3. Arithmetic: float32 on the CUDA cores, not TF32, and no fast math.
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s FP32): a round fetches one
+// record, n x 84 bytes for a cluster of n real triangles, and does K x n x 38
+// FP32 operations; at K = 256 that is ~460 operations per fetched byte against
+// the card's 20, so the traversal is bound by arithmetic: 0.256 ms for the
+// mean 16384-ray launch of the path tracer's camera, surface and shadow rays
+// (chip_smoke.py phase 3 counts it from the clusters each block visits).
+//
+// Launch shape: one block of kThreads = 544 threads per block of K <= 256 rays.
+// Threads 0..2K-1 are consumers, two per ray (ray t >> 1, half t & 1); the
+// last warp is the producer; threads of missing rays (K < 256) only help with
+// the cull. What the design does about the four costs of a first version that
+// rescanned, staged synchronously and had one thread per ray:
+//
+//   1. Cull (all threads). The clusters are in BVH order, so 16 consecutive
+//      ones lie close together: a ray slab-tests a group's union box first
+//      and tests the group's clusters only if it may hit it, which is exact
+//      (see may_hit) and skips ~98% of the tests on the main path. Tiles of
+//      256 AABBs are double-buffered in shared memory, the next tile's loads in
+//      flight while this one is tested, and the warp that holds a group of the
+//      next tile reduces it to its box; two barriers a tile. The two threads
+//      of a ray share the group tests and take alternate clusters;
+//      NaN-propagating min and max are one instruction each. Warp
+//      OR-reductions and a shared OR give the clusters some ray hits, and only
+//      those candidates' entry distances are written, compacted in cluster
+//      order, to a global scratch laid out (B, C, K), so a warp reads a
+//      candidate's column coalesced; they are recomputed for the few
+//      candidates rather than held in a per-thread array. A pass over the
+//      columns gives each candidate its first key, the column minimum.
+//   2. Selection (producer warp) instead of a rescan: a lazy min-heap of
+//      (key, candidate) lower bounds, 8 bytes each, in shared memory
+//      (kHeapShared entries; a block with more candidates keeps it in its
+//      slice of a global scratch, through the same pointer). A key is the
+//      least entry distance among the rays whose entry lies below their best
+//      t; best t only shrinks, so keys only grow and a stored key is a lower
+//      bound. To choose, the warp recomputes the top's key from its column (8
+//      loads a lane, a warp min) against the published best t and takes it if
+//      it is still below both children; else it sinks with the new key, and a
+//      BIG key drops it. Keys and candidate indices are packed into one
+//      ordered 64-bit integer, so ties go to the lower cluster index, as in
+//      the plain version. A rescan of every live candidate's column each round
+//      cost O(candidates x K) per round; a check costs O(K + log candidates).
+//   3. Staging (producer warp) instead of a synchronous copy: the chosen
+//      cluster's ids are copied by the warp, which counts the real triangles
+//      (padding sits at the tail), and its n x 80-byte record by one TMA bulk
+//      copy (cp.async.bulk) completing on the buffer's mbarrier, into the
+//      second of two shared buffers: the Hopper form of the TPU kernel's two
+//      DMA slots.
+//   4. Rounds (consumers), in the TPU kernel's order: the cluster of round r+1
+//      is chosen from the best t published at the end of round r-1 while the
+//      consumers evaluate round r, so selection and staging hide behind the
+//      forms. Published best t is double-buffered; consumers keep their
+//      running best in registers, publish it, and arrive on the buffer's
+//      "done" mbarrier, which frees the buffer for round r+2; there is no
+//      block-wide barrier after the cull. Two threads per ray, each taking
+//      every other triangle, give twice the warps of one thread per ray to
+//      hide the forms' latency (four would need 1056 threads with the
+//      producer, over the 1024 a block may have). Their nearest hits combine
+//      by (t, slot), ties to the lower slot: the serial loop's first minimum,
+//      so the result does not depend on the split. The loop carries only
+//      (t, slot); the winner's u and v are computed again.
+//   5. Arithmetic: float32 on the CUDA cores, not TF32, and no fast math.
 //      Only the nonzero coefficients of the dense 10-feature bilinear forms
 //      are stored, and each form is a chain of FP32 fused multiply-adds (3 for
-//      det, 6 for u*det and v*det, 3 plus one add for t*det) instead of the
-//      dense form's 40 multiply-adds; divisions are IEEE, and no other
-//      product is fused into a sum. The plain PyTorch version computes the
-//      same fused multiply-adds exactly (float64 products, sums rounded to
-//      odd), so the two agree bit for bit. That matters: camera rays of a
-//      regular mesh land exactly on shared edges, where the last bit decides
-//      which triangle wins, and separately rounded forms pick the other one.
+//      det, 6 for u*det and v*det, 3 plus one add for t*det); the reciprocal
+//      is IEEE, and no other product is fused into a sum. The acceptance test
+//      leaves out the plain version's compares that the others imply. The
+//      plain PyTorch version computes the same fused multiply-adds exactly
+//      (float64 products, sums rounded to odd), so the two agree bit for bit.
+//      That matters: camera rays of a regular mesh land exactly on shared
+//      edges, where the last bit decides which triangle wins.
 //
-// Bounds on an H100 SXM (3.35 TB/s, 67 TFLOP/s FP32): each round fetches one
-// record, n x 84 bytes for a cluster of n real triangles (the loop stops at
-// the first padded slot), and does K x n x (34 + 4) FP32 operations (forms,
-// one division, three products); at K = 256 that is about 456 operations per
-// fetched byte, far above the card's 20 FP32 operations per byte, so a round is
-// bound by arithmetic, and the record fetch of one block is shared by its 256
-// rays through shared memory. The cull is K x C x ~22 operations per block,
-// and the keys read n_active x K x 4 bytes of scratch per round, mostly from
-// L2. Launch shape: B = rays / K blocks; at the default 16384 lanes that is 64
-// blocks for 132 SMs, so half the card idles during a traversal (an open
-// question for a later change: smaller K, or several blocks per ray block).
+// The launch still has B = rays / K blocks: 64 at the default 16384 lanes, for
+// 132 SMs, and the launch lasts as long as its block of most rounds. A
+// two-block thread-block cluster per ray block is the next step for that.
 //
-// The C entry point returns kErrSmem when a cluster's record does not fit in
-// the shared memory a block may opt in to, else cudaGetLastError() after the
-// launch; the wrapper raises if it is not 0.
+// mcrt_traverse returns kErrSmem when the buffers do not fit in the shared
+// memory a block may opt in to, kErrHeap when a block could need the global
+// heap and none was given, kErrK for a K over kMaxK or not a multiple of 32,
+// else cudaGetLastError() after the launch; the wrapper raises if it is not 0.
+// Given a `cycles` array it launches the variant that stamps clock64() per
+// block (cull, selection, staging, waits, forms); the main path passes none.
 
 #include <cuda_runtime.h>
-#include <climits>
+#include <cstdint>
 
 namespace {
 
 constexpr float kBig = 3.4e38f;
-constexpr int kTile = 32;    // clusters per cull tile (one ballot bit each)
-constexpr int kRecW = 20;    // floats per triangle record row (19 used)
-constexpr int kErrSmem = -1; // mcrt_traverse: the record does not fit in shared memory
+constexpr int kTile = 256;         // clusters per cull tile (one mask bit each)
+constexpr int kMaskW = kTile / 32; // mask words per tile
+constexpr int kGroup = 16;         // clusters per group box of the cull
+constexpr int kGroups = kTile / kGroup;
+constexpr int kRecW = 20;          // floats per triangle record row (19 used)
+constexpr int kRowBytes = kRecW * 4;
+constexpr int kHeapShared = 4096;  // heap entries kept in shared memory
+constexpr int kMaxK = 256;         // rays per block at most; the block has 2 kMaxK + 32 threads
+constexpr int kThreads = 2 * kMaxK + 32;
+constexpr int kErrSmem = -1;
+constexpr int kErrHeap = -2;
+constexpr int kErrK = -3;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kNone = ~0ull;
 
-__device__ __forceinline__ float nmin(float a, float b) {  // NaN-propagating, as torch.minimum
-  return (a < b || a != a) ? a : b;
+// Per-block cycle counters of the stamping variant.
+enum { kCycTotal, kCycCull, kCycSelect, kCycLoad, kCycProdWait, kCycStageWait, kCycForms, kNCyc };
+
+// NaN-propagating min and max, as torch.minimum and torch.maximum: one
+// instruction each (sm_80+). A zero's sign may differ from torch's; entry
+// distances are only compared, where -0 == +0.
+__device__ __forceinline__ float nmin(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
-__device__ __forceinline__ float nmax(float a, float b) {  // NaN-propagating, as torch.maximum
-  return (a > b || a != a) ? a : b;
+__device__ __forceinline__ float nmax(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
-__global__ void traverse_kernel(const float4* __restrict__ rays,   // (B*K, 3) float4
-                                const float* __restrict__ cl_bb,   // (C, 8)
-                                const float4* __restrict__ rec,    // (C, Sp, 5) float4
-                                const int* __restrict__ tri,       // (C, Sp)
-                                float* __restrict__ tn_s,          // (B, C, K) scratch
-                                int* __restrict__ cand_s,          // (B, C) scratch
-                                float* __restrict__ out_t, int* __restrict__ out_id,
-                                float* __restrict__ out_u, float* __restrict__ out_v,
-                                int* __restrict__ stats,           // (B, 2)
-                                int C, int Sp) {
-  extern __shared__ float4 smem[];
-  const int K = blockDim.x;
-  const int k = threadIdx.x;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+// One TMA bulk copy global -> shared, completing `bytes` on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One ray: direction, origin, and direction x origin.
+struct Ray {
+  float dx, dy, dz, ox, oy, oz, cx, cy, cz;
+};
+
+// Slab test of one AABB (lo xyz, 0, hi xyz, 0): its entry and exit distances.
+// A NaN box (the cull's tile padding) gives NaN, which no test below passes.
+__device__ __forceinline__ void slab(const float4* bb, const Ray& y, float ix, float iy, float iz,
+                                     float& tnear, float& tfar) {
+  const float4 lo = bb[0], hi = bb[1];
+  const float t1x = (lo.x - y.ox) * ix, t2x = (hi.x - y.ox) * ix;
+  const float t1y = (lo.y - y.oy) * iy, t2y = (hi.y - y.oy) * iy;
+  const float t1z = (lo.z - y.oz) * iz, t2z = (hi.z - y.oz) * iz;
+  tnear = nmax(nmax(nmin(t1x, t2x), nmin(t1y, t2y)), nmin(t1z, t2z));
+  tfar = nmin(nmin(nmax(t1x, t2x), nmax(t1y, t2y)), nmax(t1z, t2z));
+}
+// The entry distance, BIG on a miss (the plain version's entry matrix).
+__device__ __forceinline__ float entry(const float4* bb, const Ray& y, float ix, float iy, float iz) {
+  float tnear, tfar;
+  slab(bb, y, ix, iy, iz, tnear, tfar);
+  return (tnear <= tfar && tfar >= 0.0f) ? tnear : kBig;
+}
+// Whether the ray may make some box inside `bb` a candidate. Conservative: the
+// slab times are monotone in the bounds, so a box that contains a candidate's
+// box gives an interval that contains the candidate's, and a NaN passes.
+__device__ __forceinline__ bool may_hit(const float4* bb, const Ray& y, float ix, float iy,
+                                        float iz) {
+  float tnear, tfar;
+  slab(bb, y, ix, iy, iz, tnear, tfar);
+  return !(tnear > tfar) & !(tfar < 0.0f);
+}
+// Whether the ray makes the box a candidate: entry(...) < BIG.
+__device__ __forceinline__ bool candidate(const float4* bb, const Ray& y, float ix, float iy,
+                                          float iz) {
+  float tnear, tfar;
+  slab(bb, y, ix, iy, iz, tnear, tfar);
+  return (tnear <= tfar) & (tfar >= 0.0f) & (tnear < kBig);
+}
+
+// (key, candidate) as one integer whose order is the key's, then the index's.
+__device__ __forceinline__ unsigned long long pack(float key, int j) {
+  if (key == 0.0f) key = 0.0f;  // -0 and +0 tie, as in a float compare
+  const uint32_t u = __float_as_uint(key);
+  const uint32_t o = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(o) << 32) | static_cast<uint32_t>(j);
+}
+
+__device__ void sift_down(unsigned long long* h, int n, int i) {
+  const unsigned long long x = h[i];
+  for (;;) {
+    int c = 2 * i + 1;
+    if (c >= n) break;
+    unsigned long long y = h[c];
+    if (c + 1 < n) {
+      const unsigned long long z = h[c + 1];
+      if (z < y) { y = z; ++c; }
+    }
+    if (x <= y) break;
+    h[i] = y;
+    i = c;
+  }
+  h[i] = x;
+}
+
+// One triangle's Moller-Trumbore forms for one ray, from its record row `r`:
+// (t, u, v) and whether the hit is valid and nearer than `tb`. The plain
+// version's terms in its order, each product fused into the sum.
+__device__ __forceinline__ bool forms(const float4* r, const Ray& y, float tb, float& t, float& u,
+                                      float& v) {
+  const float4 a = r[0], p = r[1], q = r[2], w = r[3], e = r[4];
+  const float det = fmaf(y.dz, a.z, fmaf(y.dy, a.y, y.dx * a.x));
+  const float udet = fmaf(y.cz, q.x, fmaf(y.cy, p.w, fmaf(y.cx, p.z, fmaf(y.dz, p.y,
+                     fmaf(y.dy, p.x, y.dx * a.w)))));
+  const float vdet = fmaf(y.cz, w.z, fmaf(y.cy, w.y, fmaf(y.cx, w.x, fmaf(y.dz, q.w,
+                     fmaf(y.dy, q.z, y.dx * q.y)))));
+  const float tdet = fmaf(y.oz, e.y, fmaf(y.oy, e.x, y.ox * w.w)) + e.z;
+  const float inv = __frcp_rn(det);  // IEEE 1/det
+  u = udet * inv;
+  v = vdet * inv;
+  t = tdet * inv;
+  // The plain version also asks det != 0, u <= 1 and v <= 1: with det = 0, u
+  // and v are infinite or NaN and fail u >= 0 or u + v <= 1; and u, v >= 0
+  // with fl(u + v) <= 1 imply u, v <= 1. __fadd_rn: u + v must not be
+  // contracted into fmaf(udet, inv, v).
+  return (u >= 0.0f) & (v >= 0.0f) & (__fadd_rn(u, v) <= 1.0f) & (t > 0.0f) & (t < tb);
+}
+
+// A candidate's key against the published best t: the least entry distance
+// among the rays whose entry lies below their best t (warp-uniform result).
+__device__ __forceinline__ float column_key(const float* col, const float* bt, int K, int lane) {
+  float m = kBig;
+  for (int q = lane; q < K; q += 32) {
+    const float x = col[q];
+    if (x < bt[q]) m = fminf(m, x);
+  }
+  for (int off = 16; off; off >>= 1) m = fminf(m, __shfl_xor_sync(kFull, m, off));
+  return m;
+}
+
+// The producer's choice: the candidate of least (key, index) against `bt`,
+// removed from the heap; -1 when none is left whose key is below BIG.
+__device__ int choose(unsigned long long* heap, int& hn, const float* tn_b, const float* bt, int K,
+                      int lane) {
+  for (;;) {
+    if (hn == 0) return -1;
+    unsigned long long top = 0, child = kNone;
+    if (lane == 0) {
+      top = heap[0];
+      if (hn > 1) child = heap[1];
+      if (hn > 2 && heap[2] < child) child = heap[2];
+    }
+    top = __shfl_sync(kFull, top, 0);
+    child = __shfl_sync(kFull, child, 0);
+    const int j = static_cast<int>(top & 0xffffffffu);
+    const float key = column_key(tn_b + static_cast<size_t>(j) * K, bt, K, lane);
+    const unsigned long long e = key < kBig ? pack(key, j) : kNone;
+    if (e == kNone || e < child) {  // dropped, or still the least: pop it
+      --hn;
+      if (lane == 0 && hn > 0) {
+        heap[0] = heap[hn];
+        sift_down(heap, hn, 0);
+      }
+      __syncwarp();
+      if (e != kNone) return j;
+    } else {  // its key grew past a child's: it sinks with the new key
+      if (lane == 0) {
+        heap[0] = e;
+        sift_down(heap, hn, 0);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <bool kStamp>
+__global__ void __launch_bounds__(kThreads) traverse_kernel(
+    const float4* __restrict__ rays,  // (B*K, 3) float4
+    const float* __restrict__ cl_bb,  // (C, 8)
+    const float4* __restrict__ rec,   // (C, Sp, 5) float4
+    const int* __restrict__ tri,      // (C, Sp)
+    float* __restrict__ tn_s,         // (B, C, K) scratch
+    int* __restrict__ cand_s,         // (B, C) scratch
+    unsigned long long* heap_g,       // (B, C) scratch, or null when C <= kHeapShared
+    float* __restrict__ out_t, int* __restrict__ out_id, float* __restrict__ out_u,
+    float* __restrict__ out_v, int* __restrict__ stats,  // (B, 2)
+    long long* __restrict__ cycles,                      // (B, kNCyc) when kStamp
+    int K, int C, int Sp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float4* s_rec = reinterpret_cast<float4*>(smem);                        // 2 x Sp x 5
+  unsigned long long* s_heap =
+      reinterpret_cast<unsigned long long*>(s_rec + 2 * Sp * 5);          // min(C, kHeapShared)
+  float4* s_bb = reinterpret_cast<float4*>(s_heap + min(C, kHeapShared)); // 2 x kTile x 2
+  float4* s_grp = s_bb + 4 * kTile;                                       // 2 x kGroups x 2
+  float* s_bt = reinterpret_cast<float*>(s_grp + 4 * kGroups);            // 2 x K published best t
+  int* s_tri = reinterpret_cast<int*>(s_bt + 2 * K);                      // 2 x Sp
+  __shared__ uint64_t full_bar[2], done_bar[2];
+  __shared__ int s_n[2];
+  __shared__ unsigned s_mask[2][kMaskW];
+
+  const long long t_start = kStamp ? clock64() : 0;
+  const int t = threadIdx.x;
   const int b = blockIdx.x;
-  const int lane = k & 31;
-  const int warp = k >> 5;
-  const int nwarps = K >> 5;
-
-  float4* s_rec = smem;                                      // Sp * 5 float4
-  int* s_tri = reinterpret_cast<int*>(s_rec + Sp * 5);       // Sp
-  float* s_bt = reinterpret_cast<float*>(s_tri + Sp);        // K
-  float* s_bb = s_bt + K;                                    // kTile * 8
-  float* s_wkey = s_bb + kTile * 8;                          // 32
-  int* s_wcid = reinterpret_cast<int*>(s_wkey + 32);         // 32
-  int* s_wj = s_wcid + 32;                                   // 32
-  __shared__ unsigned s_mask;
-  __shared__ int s_ncand, s_cl, s_j;
-  __shared__ float s_kmin;
-
-  const size_t ray = static_cast<size_t>(b) * K + k;
-  const float4 r0 = rays[ray * 3 + 0], r1 = rays[ray * 3 + 1], r2 = rays[ray * 3 + 2];
-  const float dx = r0.x, dy = r0.y, dz = r0.z;
-  const float ox = r1.x, oy = r1.y, oz = r1.z;
-  const float cx = r2.x, cy = r2.y, cz = r2.z;
-  const float ix = __fdiv_rn(1.0f, dx), iy = __fdiv_rn(1.0f, dy), iz = __fdiv_rn(1.0f, dz);
-
+  const int lane = t & 31;
+  const int nthreads = blockDim.x;
+  const int ncons = 2 * K;
+  const bool consumer = t < ncons;          // threads 2K..2kMaxK-1 only help with the cull
+  const bool producer = t >= 2 * kMaxK;
+  const int k = t >> 1;  // the consumer's ray
+  const int h = t & 1;   // and which half of the slots it takes
   float* tn_b = tn_s + static_cast<size_t>(b) * C * K;
   int* cand_b = cand_s + static_cast<size_t>(b) * C;
 
-  // ---- 1. cull, compacting the candidates ----
-  if (k == 0) { s_mask = 0u; s_ncand = 0; }
-  for (int c0 = 0; c0 < C; c0 += kTile) {
-    const int nt = min(kTile, C - c0);
-    for (int e = k; e < nt * 8; e += K) s_bb[e] = cl_bb[static_cast<size_t>(c0) * 8 + e];
-    __syncthreads();
-    float tv[kTile];
-#pragma unroll
-    for (int i = 0; i < kTile; ++i) {
-      bool h = false;
-      tv[i] = kBig;
-      if (i < nt) {
-        const float* bb = s_bb + i * 8;
-        const float t1x = (bb[0] - ox) * ix, t2x = (bb[4] - ox) * ix;
-        const float t1y = (bb[1] - oy) * iy, t2y = (bb[5] - oy) * iy;
-        const float t1z = (bb[2] - oz) * iz, t2z = (bb[6] - oz) * iz;
-        const float tnear = nmax(nmax(nmin(t1x, t2x), nmin(t1y, t2y)), nmin(t1z, t2z));
-        const float tfar = nmin(nmin(nmax(t1x, t2x), nmax(t1y, t2y)), nmax(t1z, t2z));
-        h = (tnear <= tfar) && (tfar >= 0.0f);
-        if (h) tv[i] = tnear;
-      }
-      const unsigned any = __ballot_sync(0xffffffffu, h);
-      if (lane == 0 && any) atomicOr(&s_mask, 1u << i);
-    }
-    __syncthreads();
-    const unsigned mask = s_mask;
-    const int base = s_ncand;
-#pragma unroll
-    for (int i = 0; i < kTile; ++i) {
-      if (mask & (1u << i)) {
-        const int pos = base + __popc(mask & ((1u << i) - 1u));
-        tn_b[static_cast<size_t>(pos) * K + k] = tv[i];
-        if (k == 0) cand_b[pos] = c0 + i;
-      }
-    }
-    __syncthreads();
-    if (k == 0) { s_ncand = base + __popc(mask); s_mask = 0u; }
+  Ray y = {};
+  if (consumer) {
+    const size_t ray = static_cast<size_t>(b) * K + k;
+    const float4 r0 = rays[ray * 3 + 0], r1 = rays[ray * 3 + 1], r2 = rays[ray * 3 + 2];
+    y = {r0.x, r0.y, r0.z, r1.x, r1.y, r1.z, r2.x, r2.y, r2.z};
   }
-  __syncthreads();
-  const int ncand = s_ncand;
+  const float ix = __fdiv_rn(1.0f, y.dx), iy = __fdiv_rn(1.0f, y.dy), iz = __fdiv_rn(1.0f, y.dz);
 
-  // ---- 2. best-first rounds ----
-  // Each round chooses the NEXT cluster from s_bt, the rays' best t of before
-  // the current visit, then evaluates the current one (the TPU kernel's order).
-  float bt = kBig, bu = 0.0f, bv = 0.0f;
-  int bid = -1;
-  s_bt[k] = bt;
-  int n_active = ncand, rounds = 0;
-  int cur = -1;  // the cluster this round evaluates, chosen a round earlier
-  for (;;) {
-    __syncthreads();
-    float wkey = kBig;
-    int wcid = INT_MAX, wj = -1;
-    for (int j = warp; j < n_active; j += nwarps) {
-      const int cid = cand_b[j];
-      if (cid < 0) continue;  // dropped: no ray of the block can still improve on it
-      const float* col = tn_b + static_cast<size_t>(j) * K;
-      float m = kBig;
-      for (int q = lane; q < K; q += 32) {
-        const float x = col[q];
-        if (x < s_bt[q]) m = fminf(m, x);
-      }
-      for (int off = 16; off; off >>= 1) m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if (!(m < kBig)) {
-        if (lane == 0) cand_b[j] = -1;
-        continue;
-      }
-      if (m < wkey || (m == wkey && cid < wcid)) { wkey = m; wcid = cid; wj = j; }
+  if (t < 2 * kMaskW) s_mask[t / kMaskW][t % kMaskW] = 0u;
+  if (t == 0) {
+    mbar_init(&full_bar[0], 32);
+    mbar_init(&full_bar[1], 32);
+    mbar_init(&done_bar[0], ncons);
+    mbar_init(&done_bar[1], ncons);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int e = t; e < 2 * K; e += nthreads) s_bt[e] = kBig;
+
+  // ---- 1. cull, compacting the candidates in cluster order ----
+  // Bit i of a tile's mask: some ray hits cluster c0 + i.
+  const float4* bb4 = reinterpret_cast<const float4*>(cl_bb);
+  const int ntiles = (C + kTile - 1) / kTile;
+  const float qnan = __int_as_float(0x7fffffff);
+  const float4 nan4 = make_float4(qnan, qnan, qnan, qnan);
+  // Thread t < 2 kTile holds float4 t of the next tile (NaN past the last
+  // cluster): the lo (t even) or hi (t odd) corner of cluster t / 2, so warp g
+  // holds group g and reduces it to the group's box.
+  auto group_box = [&](float4 x, float4* grp) {
+#pragma unroll
+    for (int off = 2; off < 32; off <<= 1) {
+      const float ax = __shfl_xor_sync(kFull, x.x, off), ay = __shfl_xor_sync(kFull, x.y, off);
+      const float az = __shfl_xor_sync(kFull, x.z, off);
+      x.x = (lane & 1) ? fmaxf(x.x, ax) : fminf(x.x, ax);
+      x.y = (lane & 1) ? fmaxf(x.y, ay) : fminf(x.y, ay);
+      x.z = (lane & 1) ? fmaxf(x.z, az) : fminf(x.z, az);
     }
-    if (lane == 0) { s_wkey[warp] = wkey; s_wcid[warp] = wcid; s_wj[warp] = wj; }
-    __syncthreads();
-    if (k == 0) {
-      float kmin = kBig;
-      int cl = INT_MAX, jj = -1;
-      for (int w = 0; w < nwarps; ++w) {
-        if (s_wkey[w] < kmin || (s_wkey[w] == kmin && s_wcid[w] < cl)) {
-          kmin = s_wkey[w]; cl = s_wcid[w]; jj = s_wj[w];
+    if (lane < 2) grp[2 * (t >> 5) + lane] = x;
+  };
+  float4 pre = t < 2 * kTile && t < 2 * C ? bb4[t] : nan4;
+  if (t < 2 * kTile) group_box(pre, s_grp);
+  int ncand = 0;
+  for (int it = 0; it < ntiles; ++it) {
+    const int c0 = it * kTile;
+    float4* tile = s_bb + (it & 1) * 2 * kTile;
+    const float4* grp = s_grp + (it & 1) * 2 * kGroups;
+    if (t < 2 * kTile) tile[t] = pre;
+    __syncthreads();  // the tile and its group boxes are staged; every thread has
+                      // read the mask of tile it-1
+    if (t < kMaskW) s_mask[(it + 1) & 1][t] = 0u;
+    if (t < 2 * kTile) pre = 2 * (c0 + kTile) + t < 2 * C ? bb4[2 * (c0 + kTile) + t] : nan4;
+    unsigned mine[kMaskW] = {};
+    if (consumer) {
+      // The ray's two threads test alternate group boxes and share the results.
+      unsigned gm = 0;
+#pragma unroll
+      for (int g = 0; g < kGroups; g += 2) gm |= unsigned(may_hit(grp + 2 * (g + h), y, ix, iy, iz)) << (g + h);
+      gm |= __shfl_xor_sync(kFull, gm, 1);
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        if (!((gm >> g) & 1u)) continue;
+#pragma unroll
+        for (int m = 0; m < kGroup; m += 2) {
+          const int i = kGroup * g + m + h;
+          if (candidate(tile + 2 * i, y, ix, iy, iz)) mine[g * kGroup / 32] |= 1u << (i & 31);
         }
       }
-      s_kmin = kmin; s_cl = cl; s_j = jj;
     }
-    __syncthreads();
-    const bool next_live = s_kmin < kBig;
-    const int next = s_cl, j = s_j;
-    if (next_live) {
-      // Swap-remove candidate j (each thread moves its own ray's entry).
-      const int last = n_active - 1;
-      if (j != last) {
-        tn_b[static_cast<size_t>(j) * K + k] = tn_b[static_cast<size_t>(last) * K + k];
-        if (k == 0) cand_b[j] = cand_b[last];
+#pragma unroll
+    for (int w = 0; w < kMaskW; ++w) {
+      const unsigned any = __reduce_or_sync(kFull, mine[w]);
+      if (lane == 0 && any) atomicOr(&s_mask[it & 1][w], any);
+    }
+    if (t < 2 * kTile) group_box(pre, s_grp + ((it + 1) & 1) * 2 * kGroups);
+    __syncthreads();  // the mask and the next tile's group boxes are complete
+    int q = ncand;
+#pragma unroll
+    for (int w = 0; w < kMaskW; ++w) {
+      for (unsigned m = s_mask[it & 1][w]; m; m &= m - 1, ++q) {
+        const int i = 32 * w + __ffs(m) - 1;
+        if (consumer && ((q - ncand) & 1) == h)
+          tn_b[static_cast<size_t>(q) * K + k] = entry(tile + 2 * i, y, ix, iy, iz);
+        if (t == 0) cand_b[q] = c0 + i;
       }
-      n_active = last;
     }
-    if (cur < 0) {  // the first choice: nothing to evaluate yet
-      if (!next_live) break;
-      cur = next;
-      continue;
+    ncand = q;
+  }
+  __syncthreads();
+  unsigned long long* heap =
+      ncand <= kHeapShared ? s_heap : heap_g + static_cast<size_t>(b) * C;
+  // First keys: every best t is BIG, so a candidate's key is its column minimum.
+  for (int j = t >> 5; j < ncand; j += nthreads >> 5) {
+    const float key = column_key(tn_b + static_cast<size_t>(j) * K, s_bt, K, lane);
+    if (lane == 0) heap[j] = pack(key, j);
+  }
+  __syncthreads();
+  const long long t_cull = kStamp ? clock64() : 0;
+
+  if (producer) {
+    // ---- 2-3. producer warp: choose, then stage, one round ahead ----
+    long long c_select = 0, c_load = 0, c_wait = 0, t0 = kStamp ? clock64() : 0;
+    int hn = ncand;
+    if (lane == 0)
+      for (int i = hn / 2 - 1; i >= 0; --i) sift_down(heap, hn, i);
+    __syncwarp();
+    for (int r = 0;; ++r) {
+      const int buf = r & 1;
+      if (r >= 2) {  // round r-2 is done: its buffer is free, its best t published
+        if (kStamp) { const long long x = clock64(); c_select += x - t0; t0 = x; }
+        mbar_wait(&done_bar[buf], ((r - 2) >> 1) & 1);
+        if (kStamp) { const long long x = clock64(); c_wait += x - t0; t0 = x; }
+      }
+      const int j = choose(heap, hn, tn_b, s_bt + buf * K, K, lane);
+      if (kStamp) { const long long x = clock64(); c_select += x - t0; t0 = x; }
+      if (j < 0) {  // no cluster left: tell the consumers to stop
+        if (lane == 0) s_n[buf] = -1;
+        mbar_arrive(&full_bar[buf]);
+        break;
+      }
+      const int cl = cand_b[j];
+      const int4* src = reinterpret_cast<const int4*>(tri + static_cast<size_t>(cl) * Sp);
+      int4* dst = reinterpret_cast<int4*>(s_tri + buf * Sp);
+      int n = 0;
+      for (int e = lane; e < Sp / 4; e += 32) {
+        const int4 v = src[e];
+        dst[e] = v;
+        n += (v.x >= 0) + (v.y >= 0) + (v.z >= 0) + (v.w >= 0);
+      }
+      n = __reduce_add_sync(kFull, n);  // padding sits at the tail: n real triangles
+      if (lane == 0) {
+        s_n[buf] = n;
+        if (n > 0) {
+          mbar_arrive_tx(&full_bar[buf], static_cast<unsigned>(n) * kRowBytes);
+          bulk_copy(s_rec + buf * Sp * 5, rec + static_cast<size_t>(cl) * Sp * 5,
+                    static_cast<unsigned>(n) * kRowBytes, &full_bar[buf]);
+        } else {
+          mbar_arrive(&full_bar[buf]);
+        }
+      } else {
+        mbar_arrive(&full_bar[buf]);
+      }
+      if (kStamp) { const long long x = clock64(); c_load += x - t0; t0 = x; }
     }
-    ++rounds;
+    if (kStamp && lane == 0) {
+      long long* cy = cycles + static_cast<size_t>(b) * kNCyc;
+      cy[kCycSelect] = c_select;
+      cy[kCycLoad] = c_load;
+      cy[kCycProdWait] = c_wait;
+    }
+    return;
+  }
+  if (!consumer) return;
 
-    // Stage the current cluster's record and ids.
-    const float4* src = rec + static_cast<size_t>(cur) * Sp * 5;
-    for (int e = k; e < Sp * 5; e += K) s_rec[e] = src[e];
-    for (int e = k; e < Sp; e += K) s_tri[e] = tri[static_cast<size_t>(cur) * Sp + e];
-    __syncthreads();
-
-    // Moller-Trumbore forms of every triangle of the cluster for this ray.
-    float tb = bt, ub = 0.0f, vb = 0.0f;
+  // ---- 4. consumers: the rounds ----
+  float bt = kBig, bu = 0.0f, bv = 0.0f;
+  int bid = -1, r = 0;
+  long long c_wait = 0, c_forms = 0, t0 = kStamp ? clock64() : 0;
+  for (;; ++r) {
+    const int buf = r & 1;
+    mbar_wait(&full_bar[buf], (r >> 1) & 1);
+    if (kStamp) { const long long x = clock64(); c_wait += x - t0; t0 = x; }
+    const int n = s_n[buf];
+    if (n < 0) break;
+    const float4* sr = s_rec + buf * Sp * 5;
+    float tb = bt, tt, u, v;
     int sb = -1;
-    for (int s = 0; s < Sp; ++s) {
-      const int id = s_tri[s];
-      if (id < 0) break;  // padding sits at the tail of a cluster
-      const float4 a = s_rec[s * 5 + 0], p = s_rec[s * 5 + 1], q = s_rec[s * 5 + 2];
-      const float4 w = s_rec[s * 5 + 3], e = s_rec[s * 5 + 4];
-      // The plain version's terms in its order, each product fused into the sum.
-      const float det = fmaf(dz, a.z, fmaf(dy, a.y, dx * a.x));
-      const float udet =
-          fmaf(cz, q.x, fmaf(cy, p.w, fmaf(cx, p.z, fmaf(dz, p.y, fmaf(dy, p.x, dx * a.w)))));
-      const float vdet =
-          fmaf(cz, w.z, fmaf(cy, w.y, fmaf(cx, w.x, fmaf(dz, q.w, fmaf(dy, q.z, dx * q.y)))));
-      const float tdet = fmaf(oz, e.y, fmaf(oy, e.x, ox * w.w)) + e.z;
-      const float inv = __fdiv_rn(1.0f, det == 0.0f ? 1.0f : det);
-      const float u = udet * inv, v = vdet * inv, t = tdet * inv;
-      // __fadd_rn: u + v must not be contracted into fmaf(udet, inv, v).
-      const bool ok = det != 0.0f && u >= 0.0f && u <= 1.0f && v >= 0.0f && v <= 1.0f &&
-                      __fadd_rn(u, v) <= 1.0f && t > 0.0f && t < tb;
-      if (ok) { tb = t; sb = id; ub = u; vb = v; }
+#pragma unroll 4
+    for (int s = h; s < n; s += 2) {
+      if (forms(sr + s * 5, y, tb, tt, u, v)) { tb = tt; sb = s; }
     }
-    if (sb >= 0) { bt = tb; bid = sb; bu = ub; bv = vb; }
-    if (!next_live) break;
-    s_bt[k] = bt;
-    cur = next;
+    // The ray's two halves: the nearer hit, ties to the lower slot.
+    const float ot = __shfl_xor_sync(kFull, tb, 1);
+    const int os = __shfl_xor_sync(kFull, sb, 1);
+    if (os >= 0 && (sb < 0 || ot < tb || (ot == tb && os < sb))) sb = os;
+    if (sb >= 0) {  // the winner's u and v, computed again as in the loop
+      forms(sr + sb * 5, y, kBig, bt, bu, bv);
+      bid = s_tri[buf * Sp + sb];
+    }
+    if (h == 0) s_bt[buf * K + k] = bt;  // published for the choice of round r+2
+    mbar_arrive(&done_bar[buf]);
+    if (kStamp) { const long long x = clock64(); c_forms += x - t0; t0 = x; }
   }
 
-  out_t[ray] = bt;
-  out_id[ray] = bid;
-  out_u[ray] = bu;
-  out_v[ray] = bv;
-  if (k == 0) {
+  if (h == 0) {
+    const size_t ray = static_cast<size_t>(b) * K + k;
+    out_t[ray] = bt;
+    out_id[ray] = bid;
+    out_u[ray] = bu;
+    out_v[ray] = bv;
+  }
+  if (t == 0) {
     stats[b * 2 + 0] = ncand;
-    stats[b * 2 + 1] = rounds;
+    stats[b * 2 + 1] = r;
+    if (kStamp) {
+      long long* cy = cycles + static_cast<size_t>(b) * kNCyc;
+      cy[kCycTotal] = clock64() - t_start;
+      cy[kCycCull] = t_cull - t_start;
+      cy[kCycStageWait] = c_wait;
+      cy[kCycForms] = c_forms;
+    }
   }
 }
 
-}  // namespace
-
-extern "C" int mcrt_traverse(const void* rays, const void* cl_bb, const void* rec, const void* tri,
-                             void* tn_scratch, void* cand_scratch, void* out_t, void* out_id,
-                             void* out_u, void* out_v, void* stats, int B, int K, int C, int Sp,
-                             void* stream) {
-  // Dynamic shared memory: the record (Sp x kRecW floats) and ids (Sp), the
-  // rays' best t (K), an AABB tile and the per-warp reduction slots.
-  const size_t smem = sizeof(float) * (static_cast<size_t>(Sp) * (kRecW + 1) + K + kTile * 8 + 3 * 32);
+template <bool kStamp>
+int launch(const void* rays, const void* cl_bb, const void* rec, const void* tri, void* tn_scratch,
+           void* cand_scratch, void* heap_scratch, void* out_t, void* out_id, void* out_u,
+           void* out_v, void* stats, void* cycles, int B, int K, int C, int Sp, void* stream) {
+  // Dynamic shared memory: two record and id buffers, the shared heap, an AABB
+  // tile and the double-buffered published best t.
+  const size_t smem = static_cast<size_t>(Sp) * 2 * (kRowBytes + 4) +
+                      static_cast<size_t>(C < kHeapShared ? C : kHeapShared) * 8 +
+                      sizeof(float) * (2 * kTile * 8 + 2 * kGroups * 8 + 2 * K);
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (smem > static_cast<size_t>(optin)) return kErrSmem;
+  if (K > kMaxK || K % 32) return kErrK;
+  if (C > kHeapShared && heap_scratch == nullptr) return kErrHeap;
+  auto kern = traverse_kernel<kStamp>;
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(traverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   }
-  traverse_kernel<<<B, K, smem, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(rays), static_cast<const float*>(cl_bb),
       static_cast<const float4*>(rec), static_cast<const int*>(tri),
       static_cast<float*>(tn_scratch), static_cast<int*>(cand_scratch),
-      static_cast<float*>(out_t), static_cast<int*>(out_id), static_cast<float*>(out_u),
-      static_cast<float*>(out_v), static_cast<int*>(stats), C, Sp);
+      static_cast<unsigned long long*>(heap_scratch), static_cast<float*>(out_t),
+      static_cast<int*>(out_id), static_cast<float*>(out_u), static_cast<float*>(out_v),
+      static_cast<int*>(stats), static_cast<long long*>(cycles), K, C, Sp);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int mcrt_traverse_heap_shared() { return kHeapShared; }
+
+extern "C" int mcrt_traverse_ncycles() { return kNCyc; }
+
+extern "C" int mcrt_traverse(const void* rays, const void* cl_bb, const void* rec, const void* tri,
+                             void* tn_scratch, void* cand_scratch, void* heap_scratch, void* out_t,
+                             void* out_id, void* out_u, void* out_v, void* stats, void* cycles,
+                             int B, int K, int C, int Sp, void* stream) {
+  return cycles == nullptr
+             ? launch<false>(rays, cl_bb, rec, tri, tn_scratch, cand_scratch, heap_scratch, out_t,
+                             out_id, out_u, out_v, stats, cycles, B, K, C, Sp, stream)
+             : launch<true>(rays, cl_bb, rec, tri, tn_scratch, cand_scratch, heap_scratch, out_t,
+                            out_id, out_u, out_v, stats, cycles, B, K, C, Sp, stream);
 }

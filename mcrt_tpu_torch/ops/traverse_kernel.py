@@ -25,11 +25,12 @@ miss); per block [candidates, rounds], with the same meaning as the TPU
 kernel's stats. Parked rays (|origin| ~ 2e30) miss every AABB, so a block of
 them runs zero rounds.
 
-The kernel (csrc/traverse.cu) evaluates the forms as chains of FP32 fused
-multiply-adds; with float32 tables the plain version computes the same fused
-multiply-adds exactly (`_fma`), so on the card the two agree bit for bit. The
-wrapper sends CUDA tensors to the kernel and CPU tensors to the plain version,
-and raises for anything else.
+The kernel (csrc/traverse.cu) chooses with a lazy heap in a producer warp and
+stages records by TMA while two threads per ray evaluate the forms, as chains
+of FP32 fused multiply-adds; with float32 tables the plain version computes
+the same fused multiply-adds exactly (`_fma`), so on the card the two agree bit
+for bit, stats included. The wrapper sends CUDA tensors to the kernel and CPU
+tensors to the plain version, and raises for anything else.
 """
 from __future__ import annotations
 
@@ -43,12 +44,14 @@ import subprocess
 import torch
 
 BIG = 3.4e38  # slightly under f32 max: "no hit" sentinel
-BLOCK = 256   # rays per block (K): one CUDA block of 256 threads, as the TPU kernel's K
+BLOCK = 256   # rays per block (K), as the TPU kernel's K; the CUDA block has 2 x 256 + 32 threads
 TILE = 1024   # clusters per slab of the plain version's entry-distance matrix
+# Per-block clock64() counters of the kernel's stamping variant (traverse_cycles).
+CYCLES = ("total", "cull", "select", "load", "producer_wait", "staging_wait", "forms")
 
 _SRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "traverse.cu"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
-_ERR_SMEM = -1  # mcrt_traverse: a cluster's record does not fit in shared memory
+_ERR_SMEM = -1  # mcrt_traverse: the record buffers do not fit in shared memory
 
 
 class _Kernel:
@@ -63,34 +66,50 @@ class _Kernel:
 kernel = _Kernel()
 
 
-def build() -> ctypes.CDLL:
-    """Compile csrc/traverse.cu with nvcc for sm_90a into the package's _build/
-    directory (once per source content) and load it with ctypes."""
-    if kernel.lib is not None:
-        return kernel.lib
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
-    lib_path = _BUILD_DIR / f"libtraverse_{tag}.so"
-    log_path = _BUILD_DIR / f"libtraverse_{tag}.log"
+def compile_source(src: pathlib.Path, stem: str) -> tuple[pathlib.Path, str]:
+    """Compile one .cu file with nvcc for sm_90a into the package's _build/
+    directory as lib{stem}_{hash}.so, once per source content; returns the
+    library's path and ptxas's report (registers, shared memory, spills)."""
+    tag = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    lib_path = _BUILD_DIR / f"lib{stem}_{tag}.so"
+    log_path = _BUILD_DIR / f"lib{stem}_{tag}.log"
     if not lib_path.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-               "-o", str(tmp), str(_SRC)]
+               "-o", str(tmp), str(src)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
         log_path.write_text(res.stdout + res.stderr)
         os.replace(tmp, lib_path)
+    return lib_path, log_path.read_text() if log_path.exists() else ""
+
+
+def build() -> ctypes.CDLL:
+    """Compile csrc/traverse.cu (once per source content) and load it with ctypes."""
+    if kernel.lib is not None:
+        return kernel.lib
+    lib_path, log = compile_source(_SRC, "traverse")
     lib = ctypes.CDLL(str(lib_path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.mcrt_traverse.argtypes = [vp] * 11 + [ci] * 4 + [vp]
+    lib.mcrt_traverse.argtypes = [vp] * 13 + [ci] * 4 + [vp]
     lib.mcrt_traverse.restype = ci
-    kernel.build_log = log_path.read_text() if log_path.exists() else ""
+    lib.mcrt_traverse_heap_shared.restype = ci
+    lib.mcrt_traverse_ncycles.restype = ci
+    if lib.mcrt_traverse_ncycles() != len(CYCLES):
+        raise RuntimeError("csrc/traverse.cu and CYCLES disagree on the cycle counters")
+    kernel.build_log = log
     kernel.lib = lib
     return lib
+
+
+def heap_shared() -> int:
+    """Candidates a block keeps in its shared-memory heap; a block with more
+    keeps the heap in global scratch (CUDA only: builds the kernel)."""
+    return build().mcrt_traverse_heap_shared()
 
 
 def ray_features(origin, direction, dtype=torch.float32):
@@ -142,6 +161,19 @@ def traverse(cbvh, origin, direction):
     any other device raises."""
     if origin.device.type == "cpu":
         return traverse_plain(cbvh, origin, direction)
+    return _launch(cbvh, origin, direction, stamp=False)
+
+
+def traverse_cycles(cbvh, origin, direction):
+    """The kernel's stamping variant, for measurement only: traverse's outputs
+    plus (B, len(CYCLES)) int64 clock64() cycles per block. Cull runs to the
+    first keys; select (heap build included), load (ids and the TMA issue) and
+    producer_wait are the producer warp's; staging_wait and forms (the rounds)
+    are consumer thread 0's. CUDA tensors only."""
+    return _launch(cbvh, origin, direction, stamp=True)
+
+
+def _launch(cbvh, origin, direction, stamp):
     if origin.device.type != "cuda":
         raise ValueError(f"traverse: unsupported device {origin.device}")
     for name in ("cl_bb", "rec", "tri"):
@@ -150,31 +182,38 @@ def traverse(cbvh, origin, direction):
             raise ValueError(f"cluster table {name} must be contiguous on {origin.device}")
     if cbvh.rec.dtype != torch.float32 or cbvh.tri.dtype != torch.int32:
         raise ValueError("cluster tables must be float32 records and int32 ids")
+    C, Sp, _ = cbvh.rec.shape
+    if Sp % 4 or any(getattr(cbvh, n).data_ptr() % 16 for n in ("cl_bb", "rec", "tri")):
+        raise ValueError("cluster tables must be 16-byte aligned, with Sp a multiple of 4")
     R = origin.shape[0]
     ft, K = ray_features(origin, direction)
     B = ft.shape[0]
-    C, Sp, _ = cbvh.rec.shape
     lib = build()
     dev = origin.device
     f32, i32 = torch.float32, torch.int32
     tn = torch.empty((B, C, K), dtype=f32, device=dev)
     cand = torch.empty((B, C), dtype=i32, device=dev)
+    heap = torch.empty((B, C), dtype=torch.int64, device=dev) if C > heap_shared() else None
     t = torch.empty((B, K), dtype=f32, device=dev)
     tid = torch.empty((B, K), dtype=i32, device=dev)
     u = torch.empty((B, K), dtype=f32, device=dev)
     v = torch.empty((B, K), dtype=f32, device=dev)
     stats = torch.empty((B, 2), dtype=i32, device=dev)
+    cycles = torch.zeros((B, len(CYCLES)), dtype=torch.int64, device=dev) if stamp else None
+    ptr = lambda x: None if x is None else x.data_ptr()
     with torch.cuda.device(dev):
         err = lib.mcrt_traverse(
             ft.data_ptr(), cbvh.cl_bb.data_ptr(), cbvh.rec.data_ptr(), cbvh.tri.data_ptr(),
-            tn.data_ptr(), cand.data_ptr(), t.data_ptr(), tid.data_ptr(), u.data_ptr(),
-            v.data_ptr(), stats.data_ptr(), B, K, C, Sp, torch.cuda.current_stream(dev).cuda_stream)
+            tn.data_ptr(), cand.data_ptr(), ptr(heap), t.data_ptr(), tid.data_ptr(), u.data_ptr(),
+            v.data_ptr(), stats.data_ptr(), ptr(cycles), B, K, C, Sp,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err == _ERR_SMEM:
-        raise ValueError(f"traverse: a cluster of {Sp} triangles does not fit in shared memory")
+        raise ValueError(f"traverse: two records of {Sp} triangles do not fit in shared memory")
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: CUDA error {err}")
     kernel.launches += 1
-    return (*_unpad(R, t, tid, u, v), stats)
+    out = (*_unpad(R, t, tid, u, v), stats)
+    return (*out, cycles) if stamp else out
 
 
 def traverse_plain(cbvh, origin, direction):
