@@ -12,10 +12,10 @@
 // (chip_smoke.py phase 3 counts it from the clusters each block visits).
 //
 // Launch shape: one block of kThreads = 544 threads per block of K <= 256 rays.
-// Threads 0..2K-1 are consumers, two per ray (ray t >> 1, half t & 1); the
-// last warp is the producer; threads of missing rays (K < 256) only help with
-// the cull. What the design does about the four costs of a first version that
-// rescanned, staged synchronously and had one thread per ray:
+// Threads 0..2K-1 are consumers, two per ray; the last warp is the producer;
+// threads of missing rays (K < 256) only help with the cull. What the design
+// does about the four costs of a first version that rescanned, staged
+// synchronously and had one thread per ray:
 //
 //   1. Cull (all threads). The clusters are in BVH order, so 16 consecutive
 //      ones lie close together: a ray slab-tests a group's union box first
@@ -57,13 +57,14 @@
 //      forms. Published best t is double-buffered; consumers keep their
 //      running best in registers, publish it, and arrive on the buffer's
 //      "done" mbarrier, which frees the buffer for round r+2; there is no
-//      block-wide barrier after the cull. Two threads per ray, each taking
-//      every other triangle, give twice the warps of one thread per ray to
-//      hide the forms' latency (four would need 1056 threads with the
-//      producer, over the 1024 a block may have). Their nearest hits combine
-//      by (t, slot), ties to the lower slot: the serial loop's first minimum,
-//      so the result does not depend on the split. The loop carries only
-//      (t, slot); the winner's u and v are computed again.
+//      block-wide barrier after the cull. Two threads per ray give twice the
+//      warps of one thread per ray to hide the forms' latency (four would need
+//      1056 threads with the producer, over the 1024 a block may have): four
+//      threads share two adjacent rays and take every fourth triangle, so each
+//      record row read from shared memory serves two rays. The quarters'
+//      nearest hits combine by (t, slot), ties to the lower slot: the serial
+//      loop's first minimum, so the result does not depend on the split. The
+//      loop carries only (t, slot); the winner's u and v are computed again.
 //   5. Arithmetic: float32 on the CUDA cores, not TF32, and no fast math.
 //      Only the nonzero coefficients of the dense 10-feature bilinear forms
 //      are stored, and each form is a chain of FP32 fused multiply-adds (3 for
@@ -223,12 +224,18 @@ __device__ void sift_down(unsigned long long* h, int n, int i) {
   h[i] = x;
 }
 
-// One triangle's Moller-Trumbore forms for one ray, from its record row `r`:
-// (t, u, v) and whether the hit is valid and nearer than `tb`. The plain
-// version's terms in its order, each product fused into the sum.
-__device__ __forceinline__ bool forms(const float4* r, const Ray& y, float tb, float& t, float& u,
+// One triangle's record row: the nonzero coefficients of its forms.
+struct Row {
+  float4 a, p, q, w, e;
+};
+__device__ __forceinline__ Row load_row(const float4* r) { return {r[0], r[1], r[2], r[3], r[4]}; }
+
+// One triangle's Moller-Trumbore forms for one ray: (t, u, v) and whether the
+// hit is valid and nearer than `tb`. The plain version's terms in its order,
+// each product fused into the sum.
+__device__ __forceinline__ bool forms(const Row& row, const Ray& y, float tb, float& t, float& u,
                                       float& v) {
-  const float4 a = r[0], p = r[1], q = r[2], w = r[3], e = r[4];
+  const float4 a = row.a, p = row.p, q = row.q, w = row.w, e = row.e;
   const float det = fmaf(y.dz, a.z, fmaf(y.dy, a.y, y.dx * a.x));
   const float udet = fmaf(y.cz, q.x, fmaf(y.cy, p.w, fmaf(y.cx, p.z, fmaf(y.dz, p.y,
                      fmaf(y.dy, p.x, y.dx * a.w)))));
@@ -326,8 +333,8 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(
   const int ncons = 2 * K;
   const bool consumer = t < ncons;          // threads 2K..2kMaxK-1 only help with the cull
   const bool producer = t >= 2 * kMaxK;
-  const int k = t >> 1;  // the consumer's ray
-  const int h = t & 1;   // and which half of the slots it takes
+  const int k = t >> 1;  // the ray this thread culls for
+  const int h = t & 1;   // and which half of a tile's clusters it tests
   float* tn_b = tn_s + static_cast<size_t>(b) * C * K;
   int* cand_b = cand_s + static_cast<size_t>(b) * C;
 
@@ -484,8 +491,18 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(
   if (!consumer) return;
 
   // ---- 4. consumers: the rounds ----
-  float bt = kBig, bu = 0.0f, bv = 0.0f;
-  int bid = -1, r = 0;
+  // Four threads share two adjacent rays and take every fourth slot, so each
+  // record row they load from shared memory serves two rays.
+  const int p = t >> 2, qt = t & 3;
+  Ray ry[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const size_t ray = static_cast<size_t>(b) * K + 2 * p + j;
+    const float4 r0 = rays[ray * 3 + 0], r1 = rays[ray * 3 + 1], r2 = rays[ray * 3 + 2];
+    ry[j] = {r0.x, r0.y, r0.z, r1.x, r1.y, r1.z, r2.x, r2.y, r2.z};
+  }
+  float bt[2] = {kBig, kBig}, bu[2] = {0.0f, 0.0f}, bv[2] = {0.0f, 0.0f};
+  int bid[2] = {-1, -1}, r = 0;
   long long c_wait = 0, c_forms = 0, t0 = kStamp ? clock64() : 0;
   for (;; ++r) {
     const int buf = r & 1;
@@ -494,31 +511,45 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(
     const int n = s_n[buf];
     if (n < 0) break;
     const float4* sr = s_rec + buf * Sp * 5;
-    float tb = bt, tt, u, v;
-    int sb = -1;
-#pragma unroll 4
-    for (int s = h; s < n; s += 2) {
-      if (forms(sr + s * 5, y, tb, tt, u, v)) { tb = tt; sb = s; }
+    float tb[2] = {bt[0], bt[1]};
+    int sb[2] = {-1, -1};
+#pragma unroll 2
+    for (int s = qt; s < n; s += 4) {
+      const Row row = load_row(sr + s * 5);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float tt, u, v;
+        if (forms(row, ry[j], tb[j], tt, u, v)) { tb[j] = tt; sb[j] = s; }
+      }
     }
-    // The ray's two halves: the nearer hit, ties to the lower slot.
-    const float ot = __shfl_xor_sync(kFull, tb, 1);
-    const int os = __shfl_xor_sync(kFull, sb, 1);
-    if (os >= 0 && (sb < 0 || ot < tb || (ot == tb && os < sb))) sb = os;
-    if (sb >= 0) {  // the winner's u and v, computed again as in the loop
-      forms(sr + sb * 5, y, kBig, bt, bu, bv);
-      bid = s_tri[buf * Sp + sb];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      // The ray's four quarters: the nearer hit, ties to the lower slot.
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float ot = __shfl_xor_sync(kFull, tb[j], off);
+        const int os = __shfl_xor_sync(kFull, sb[j], off);
+        if (os >= 0 && (sb[j] < 0 || ot < tb[j] || (ot == tb[j] && os < sb[j]))) {
+          tb[j] = ot;
+          sb[j] = os;
+        }
+      }
+      if (sb[j] >= 0) {  // the winner's u and v, computed again as in the loop
+        forms(load_row(sr + sb[j] * 5), ry[j], kBig, bt[j], bu[j], bv[j]);
+        bid[j] = s_tri[buf * Sp + sb[j]];
+      }
     }
-    if (h == 0) s_bt[buf * K + k] = bt;  // published for the choice of round r+2
+    if (qt < 2) s_bt[buf * K + 2 * p + qt] = qt ? bt[1] : bt[0];  // for the choice of round r+2
     mbar_arrive(&done_bar[buf]);
     if (kStamp) { const long long x = clock64(); c_forms += x - t0; t0 = x; }
   }
 
-  if (h == 0) {
-    const size_t ray = static_cast<size_t>(b) * K + k;
-    out_t[ray] = bt;
-    out_id[ray] = bid;
-    out_u[ray] = bu;
-    out_v[ray] = bv;
+  if (qt < 2) {
+    const size_t ray = static_cast<size_t>(b) * K + 2 * p + qt;
+    out_t[ray] = qt ? bt[1] : bt[0];
+    out_id[ray] = qt ? bid[1] : bid[0];
+    out_u[ray] = qt ? bu[1] : bu[0];
+    out_v[ray] = qt ? bv[1] : bv[0];
   }
   if (t == 0) {
     stats[b * 2 + 0] = ncand;
