@@ -7,9 +7,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases (each prints its own lines; any failed check exits non-zero):
   1. device   the card's name and power limit (nvidia-smi); no card, no run
-  2. build    nvcc builds both kernels, mcrt_tpu_torch/csrc/traverse.cu and
-              csrc/knn.cu (and the parent's traverse.cu when OLD_TRAVERSE exists),
-              in parallel, and prints ptxas's register and spill lines
+  2. build    nvcc builds both kernel sources, mcrt_tpu_torch/csrc/traverse.cu and
+              csrc/knn.cu (and the parent's traverse.cu and knn.cu when they are
+              handed in at chip_old/), in parallel, and prints ptxas's register
+              and spill lines
   3. kernel   the traversal kernel against its plain PyTorch version on the card, on camera
               rays, random rays from surface points, shadow rays, a parked block
               and mixed live/dead blocks: ids, t, u, v and per-block stats
@@ -29,15 +30,22 @@ Phases (each prints its own lines; any failed check exits non-zero):
   6. photon   the photon mapper's main path: render(integrator="photon_mapper") of
               the same height field with the photon_map block of
               tests/scenes/caustic_sphere.json (5e5 emissions x 10 caustic_factor,
-              k = 50) at 512x512, 4 spp, max_bounces 64, with both kernels' launch
-              counts reset before and read after; then a profiled 1-spp eye pass
-  7. knn      the k-NN kernel against its plain version on the card, on the photon
-              render's two maps and three query sets (first-bounce hits of 16384
-              camera rays, random mesh points, the hits with every other query
-              masked): ids, d2, counts, flags and block stats identical; then
-              kernel, plain and the brute fallback on the flagged rows timed at
-              the eye pass's launch shape (16384 queries, k = 50), with the bound
-              counted from the photons each block reads
+              k = 50) at 512x512, 4 spp, max_bounces 64, with all four kernels'
+              launch counts reset before and read after, and no call of the brute
+              fallback allowed; then a profiled 1-spp eye pass, which must run no
+              topk kernel
+  7. knn      the three k-NN kernels (ring 1, widening rings, whole-map scan)
+              against their plain version on the card, on the photon render's two
+              maps and three query sets (first-bounce hits of 16384 camera rays,
+              random mesh points, the hits with every other query masked): ids,
+              d2, counts, stages and queue counts identical; the share of queries
+              each stage answers, the ring histograms, and the photons evaluated
+              per query against those of its own cells; photon_grid.knn in float32
+              under CUDA's sync debug mode; then the kernels, the plain version
+              (and the parent's kernel with the brute fallback on its flagged
+              rows, in turns) timed at the eye pass's launch shape (16384
+              queries, k = 50), with the bound counted from the rings that
+              certify each query
   8. golden   tests/scenes/caustic_sphere.json photon-rendered at 48x48, 64 spp,
               2e5 emissions, against the C++ reference's
               tests/goldens/caustic_sphere_48_s8.tga with tests/test_e2e_golden.py's bars
@@ -68,7 +76,7 @@ FP32_OPS_PER_S = 67e12
 # of the cull: 6 subtracts, 6 multiplies, 10 min/max.
 OPS_PER_RAY_TRI = 38
 OPS_PER_RAY_BOX = 22
-# Per (query, photon read) of the k-NN kernel: 3 subtracts, 3 multiplies, 2 adds.
+# Per (query, photon) of the exact k-NN: 3 subtracts, 3 multiplies, 2 adds.
 OPS_PER_QUERY_PHOTON = 8
 
 # The run's one configuration: the height field at n = 708 (1,002,528
@@ -91,6 +99,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # is not part of the repo): phase 3 then times it in turns with this tree's
 # kernel, and takes its cycle split if it has a stamping entry point.
 OLD_TRAVERSE = ROOT / "chip_old" / "traverse.cu"
+# The parent commit's knn.cu (the one-ring kernel whose flagged queries went to
+# the brute force), handed in the same way: phase 7 then times it, with
+# _knn_brute on the rows it flags, in turns with this tree's kernels.
+OLD_KNN = ROOT / "chip_old" / "knn.cu"
 PARENT_CYCLES = ("total", "cull", "select", "staging", "forms")
 
 
@@ -229,44 +241,51 @@ def traversal_bound(tk, cbvh, o, d, stats):
 def photon_phase(scene, card, pm_dir):
     """Phase 6: the photon render at full size, through render() as a user calls
     it, with the photon maps checkpointed into `pm_dir` for phase 7. Returns the
-    k-NN kernel's launches in it."""
+    k-NN kernels' launches in it, by kernel name."""
     import numpy as np
     import torch
 
     import mcrt_tpu_torch as mt
     from mcrt_tpu_torch.accel import knn_kernel as kk
+    from mcrt_tpu_torch.accel import photon_grid as pg
     from mcrt_tpu_torch.ops import traverse_kernel as tk
 
     cam = scene.cameras[0]
     cfg = mt.RenderConfig(max_bounces=64, sqrtspp=PM_SQRTSPP, integrator="photon_mapper")
     stats = {}
-    tk.kernel.launches = kk.kernel.launches = 0
+    tk.kernel.launches = 0
+    for kern in kk.KERNELS:
+        kern.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    hdr = mt.render(scene, 0, cfg, stats=stats, checkpoint_dir=pm_dir,
-                    checkpoint_every_s=1e9)
+    with mock.patch.object(pg, "_exact_fallback", wraps=pg._exact_fallback) as fallback:
+        hdr = mt.render(scene, 0, cfg, stats=stats, checkpoint_dir=pm_dir,
+                        checkpoint_every_s=1e9)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    trav, knn = tk.kernel.launches, kk.kernel.launches
-    fallback_ms = sum(a.elapsed_time(b) for a, b in stats.pop("knn_fallback_events", []))
+    trav = tk.kernel.launches
+    knn = {kern.name: kern.launches for kern in kk.KERNELS}
     spp = PM_SQRTSPP ** 2
     paths = cam.width * cam.height * spp
     emissions = int(PHOTON_MAP["emissions"] * PHOTON_MAP["caustic_factor"])
     t_photon = stats["photon_pass_s"]
     t_eye = wall - t_photon
-    queries = int(stats["knn_queries"])
+    queries, flagged, scanned = (int(stats[key]) for key in ("knn_queries", "knn_flagged",
+                                                             "knn_scanned"))
     log("photon", f"{cam.width}x{cam.height} {spp} spp, {scene.n_tris} triangles, "
         f"{emissions} emission paths: wall {wall:.3f} s = photon pass {t_photon:.3f} s "
         f"({emissions / t_photon / 1e6:.4f} M emissions/s, {stats['emission_steps']} steps) "
         f"+ eye pass {t_eye:.3f} s ({paths / t_eye / 1e6:.4f} M camera rays/s, "
         f"{stats['bounce_steps']} bounce steps, {stats['chunks']} chunks) | {card}")
     log("photon", f"photons: caustic {stats['photons_caustic']}, global {stats['photons_global']}; "
-        f"launches: traversal {trav}, k-NN {knn}; k-NN queries {queries}, flagged "
-        f"{stats['knn_flagged']} ({100 * stats['knn_flagged'] / max(queries, 1):.1f}%), brute "
-        f"fallback {fallback_ms / 1e3:.3f} s of device time over {stats['knn_calls']} calls "
-        f"| {card}")
+        f"launches: traversal {trav}, k-NN {knn}; k-NN queries {queries} over "
+        f"{stats['knn_calls']} calls: to stage B {flagged} ({100 * flagged / max(queries, 1):.1f}%), "
+        f"to the whole-map scan {scanned} ({100 * scanned / max(queries, 1):.1f}%); brute "
+        f"fallback calls {fallback.call_count} | {card}")
     check(trav > 0, "photon", "the traversal kernel was not launched on the photon path")
-    check(knn > 0, "photon", "the k-NN kernel was not launched on the photon path")
+    for name, n in knn.items():
+        check(n > 0, "photon", f"the k-NN kernel {name} was not launched on the photon path")
+    check(fallback.call_count == 0, "photon", "the float32 exact k-NN went to the brute fallback")
     check(hdr.shape == (cam.height, cam.width, 3), "photon", f"bad image shape {hdr.shape}")
     check(bool(np.isfinite(hdr).all()) and float(hdr.min()) >= 0.0, "photon",
           "non-finite or negative")
@@ -290,12 +309,15 @@ def photon_phase(scene, card, pm_dir):
     ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)
     dev_us = sum(dev_time(e) for e in ev)
+    topk = [e.key for e in ev if "topk" in e.key.lower()]
+    check(not topk, "photon", f"topk kernels ran in the eye pass: {topk[:3]}")
     if dev_us > 0:
         part = lambda name: sum(dev_time(e) for e in ev if name in e.key) / dev_us
+        knn_share = ", ".join(f"{k.name} {100 * part(k.name):.1f}%" for k in kk.KERNELS)
         log("photon", f"1-spp profiled eye pass: wall {wall1:.3f} s (profiler on), device busy "
-            f"{dev_us / 1e6:.3f} s ({100 * dev_us / 1e6 / wall1:.1f}% of wall); k-NN kernel "
-            f"{100 * part('knn_kernel'):.1f}%, traversal {100 * part('traverse_kernel'):.1f}% "
-            f"of device time | {card}")
+            f"{dev_us / 1e6:.3f} s ({100 * dev_us / 1e6 / wall1:.1f}% of wall); k-NN kernels "
+            f"{knn_share}; traversal {100 * part('traverse_kernel'):.1f}% of device time; no "
+            f"topk kernels | {card}")
         for e in sorted(ev, key=lambda e: -dev_time(e))[:10]:
             log("photon", f"  device time {dev_time(e) / 1e3:10.1f} ms x{e.count:7d}  {e.key[:90]}")
     else:
@@ -303,35 +325,155 @@ def photon_phase(scene, card, pm_dir):
     return knn
 
 
-def knn_bound(kk, grid, q, stats):
-    """(bound_ms, bound_by) of one k-NN launch on these queries and this map.
-
-    Bytes: the distinct photon rows the blocks read (12 bytes each: the (N, 3)
-    float32 positions), the CSR starts of the columns read, the queries in
-    (2 x 16 bytes) and the outputs (k x 8 + 4 bytes per query). Operations: 8
-    per (valid query, photon its block reads). The ranges come from the plain
-    version's block_columns, whose stats must equal the kernel's."""
+def box_table(grid):
+    """(N-cell summed-area table (nx+1, ny+1, nz+1) of photon counts, per-cell
+    counts (nx, ny, nz)), int64 on the grid's device."""
     import torch
 
-    blk, s, e, st = kk.block_columns(grid, grid.arrays, q)
-    check(torch.equal(st, stats), "knn", "block_columns disagrees with the kernel's stats")
-    cover = torch.zeros(grid.n_photons + 1, dtype=torch.int64, device=s.device)
-    cover.index_add_(0, s, torch.ones_like(s)).index_add_(0, e, -torch.ones_like(e))
-    rows = int((torch.cumsum(cover, 0)[:-1] > 0).sum())
-    Q = q.qpos.shape[0]
-    valid = (q.qpos[:, 3] > 0.5).view(q.n_blocks, kk.BLOCK).sum(1).to(torch.float64)
-    ops = float((valid * stats[:, 1].to(torch.float64)).sum()) * OPS_PER_QUERY_PHOTON
-    k = PHOTON_MAP["k_nearest_photons"]
-    bytes_ = rows * 12 + 2 * len(s) * 4 + Q * 32 + Q * (k * 8 + 4)
+    cs = grid.arrays.cell_start.to(torch.int64)
+    counts = (cs[1:] - cs[:-1]).view(*grid.dims)
+    sat = torch.zeros(tuple(n + 1 for n in grid.dims), dtype=torch.int64, device=cs.device)
+    sat[1:, 1:, 1:] = counts.cumsum(0).cumsum(1).cumsum(2)
+    return sat, counts
+
+
+def box_count(sat, lo, hi):
+    """Photons in the cell boxes [lo, hi] (V, 3), by inclusion-exclusion."""
+    a, b = lo, hi + 1
+    total = 0
+    for cx in (0, 1):
+        for cy in (0, 1):
+            for cz in (0, 1):
+                sign = (-1) ** (3 - cx - cy - cz)
+                total = total + sign * sat[(a, b)[cx][:, 0], (a, b)[cy][:, 1], (a, b)[cz][:, 2]]
+    return total
+
+
+def knn_work(kk, grid, pts, mask, k, plain):
+    """What the exact k-NN of these queries needs, from the data alone: the
+    ring r* that certifies each valid query (no cell budget), and per stage
+    the bound's work. `plain` is knn_plain's result, whose k-th d2 fixes r*.
+
+    Operations: 8 per (valid query, photon of its ring-1 box), plus, for a
+    query that ring 1 does not certify, 8 per photon of its ring-r* box.
+    Bytes: 12 per distinct photon row of those boxes, 8 per distinct (x, y)
+    column they touch (its CSR start and end), the queries (12 + 1 bytes) and
+    the outputs (k x 8 + 4 bytes), each once. Returns a dict: r* (V,), the
+    stage (V,), photons of each query's ring-1 box (V,); (ops, bytes) of the
+    whole function ("total") and of each stage's share: ring1 the ring-1
+    boxes of all valid queries and the queries and outputs, rings and scan
+    the r* boxes of the queries they answer."""
+    import torch
+
+    kth = plain.d2[:, k - 1].float()
+    rstar = kk.certifying_ring(grid, grid.arrays, pts, kth, mask)
+    valid = mask if mask is not None else torch.ones(pts.shape[0], dtype=torch.bool,
+                                                     device=pts.device)
+    q = kk.sort_queries(grid, pts, mask)
+    cells = torch.empty((pts.shape[0], 3), dtype=torch.int64, device=pts.device)
+    cells[q.qcell[:, 3].long()] = q.qcell[:, :3].long()
+    c, r, stage = cells[valid], rstar[valid], plain.stage[valid].long()
+    sat, counts = box_table(grid)
+    top = torch.as_tensor(grid.dims, device=c.device) - 1
+    box = lambda rr: (torch.clamp(c - rr[:, None], min=0), torch.minimum(c + rr[:, None], top))
+    one = box(torch.ones_like(r))
+    own = box_count(sat, *one)
+    need = torch.where(r > 1, box_count(sat, *box(r)), 0)
+    out = {"rstar": r, "stage": stage, "own": own}
+
+    def cover(lo, hi):
+        """Photons and (x, y) columns of the union of cell boxes [lo, hi]."""
+        diff = torch.zeros(tuple(n + 1 for n in grid.dims), dtype=torch.int32, device=c.device)
+        a, b = lo, hi + 1
+        for cx in (0, 1):
+            for cy in (0, 1):
+                for cz in (0, 1):
+                    idx = ((a, b)[cx][:, 0], (a, b)[cy][:, 1], (a, b)[cz][:, 2])
+                    diff.index_put_(idx, torch.full_like(lo[:, 0], (-1) ** (cx + cy + cz),
+                                                         dtype=torch.int32), accumulate=True)
+        covered = diff.cumsum(0).cumsum(1).cumsum(2)[:-1, :-1, :-1] > 0
+        return int(counts[covered].sum()), int(covered.any(dim=2).sum())
+
+    io = pts.shape[0] * (13 + k * 8 + 4)       # queries in, outputs out
+    later = box(r)
+    stages = {"ring1": (torch.ones_like(stage, dtype=torch.bool), one, own),
+              "rings": (stage > 1, later, need), "scan": (stage == kk.STAGE_SCAN, later, need)}
+    for name, (sel, (lo, hi), photons) in stages.items():
+        rows, cols = cover(lo[sel], hi[sel])
+        out[name] = (OPS_PER_QUERY_PHOTON * float(photons[sel].sum()),
+                     rows * 12 + cols * 8 + (io if name == "ring1" else 0))
+    beyond = r > 1
+    rows, cols = cover(torch.cat([one[0], later[0][beyond]]), torch.cat([one[1], later[1][beyond]]))
+    out["total"] = (OPS_PER_QUERY_PHOTON * float(own.sum() + need.sum()), rows * 12 + cols * 8 + io)
+    return out
+
+
+def bound_of(ops, bytes_):
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations"), rows
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
-def knn_phase(scene, cam, card, rng, pm_dir):
-    """Phase 7: the k-NN kernel against its plain version on the photon render's
-    maps, then timed. Returns the kernel's row of the JSON table (less launches)."""
+def load_parent_knn(path):
+    """The parent's one-ring k-NN kernel, built from `path` by nvcc like this
+    tree's: its C entry mcrt_knn(8 pointers, B, k, nx, ny, nz, cell2, stream).
+    None when the file is absent."""
+    from mcrt_tpu_torch.ops import traverse_kernel as tk
+
+    if not path.exists():
+        return None
+    lib = ctypes.CDLL(str(tk.compile_source(path, "knn_parent")[0]))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.mcrt_knn.argtypes = [vp] * 8 + [ci] * 5 + [ctypes.c_float, vp]
+    lib.mcrt_knn.restype = ci
+    return lib
+
+
+def parent_knn(lib, kk, pg, g, pts, mask, k, fallback=True):
+    """The parent's exact k-NN on the card: its kernel on blocks of 128 sorted
+    queries, then `_knn_brute` on the rows it flags (fewer than min(k, N)
+    photons within the cell radius), as the parent's photon_grid.knn did, with
+    its host sync. Returns (idx, d2, count, per-block [columns, photons read],
+    flagged rows)."""
+    import torch
+
+    dev = pts.device
+    q = kk.sort_queries(g, pts, mask)
+    Q = pts.shape[0]
+    B = -(-Q // 128)
+    qpos = torch.zeros((B * 128, 4), dtype=torch.float32, device=dev)
+    qcell = torch.full((B * 128, 4), -1, dtype=torch.int32, device=dev)
+    qpos[:Q], qcell[:Q] = q.qpos, q.qcell
+    idx = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    d2 = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    cnt = torch.empty((Q,), dtype=torch.int32, device=dev)
+    stats = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    nx, ny, nz = g.dims
+    cell2 = float(torch.tensor(g.cell_size * g.cell_size, dtype=torch.float32))
+    err = lib.mcrt_knn(qpos.data_ptr(), qcell.data_ptr(), g.arrays.pos.data_ptr(),
+                       g.arrays.cell_start.data_ptr(), idx.data_ptr(), d2.data_ptr(),
+                       cnt.data_ptr(), stats.data_ptr(), B, k, nx, ny, nz, cell2,
+                       torch.cuda.current_stream().cuda_stream)
+    check(err == 0, "knn", f"the parent's k-NN kernel failed to launch: {err}")
+    if not fallback:
+        return idx, d2, cnt, stats, None
+    needs = cnt < min(k, g.n_photons)
+    if mask is not None:
+        needs &= mask
+    rows = torch.nonzero(needs).squeeze(1)     # the parent's host sync
+    if rows.shape[0]:
+        bd2, bix, _ = pg._knn_brute(g.arrays, pts[rows], k, g.n_photons)
+        d2[rows], idx[rows], cnt[rows] = bd2, bix, min(k, g.n_photons)
+    return idx, d2, cnt, stats, rows
+
+
+def knn_phase(scene, cam, card, rng, pm_dir, parent):
+    """Phase 7: the k-NN kernels against their plain version on the photon
+    render's maps, then timed. Returns the kernels' rows of the JSON table
+    (less launches), by kernel name."""
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     from mcrt_tpu_torch.accel import knn_kernel as kk
     from mcrt_tpu_torch.accel import photon_grid as pg
@@ -346,6 +488,7 @@ def knn_phase(scene, cam, card, rng, pm_dir):
         maps[name] = pg.load_photon_grid(path, dev)
         g = maps[name]
         log("knn", f"{name} map: {g.n_photons} photons, grid {g.dims}, cell {g.cell_size:.5g}")
+    log("knn", f"resident warps per SM: {kk.resident_warps()}; cell budget {kk.CELL_BUDGET}")
 
     # Query sets: first-bounce hits of camera rays, random mesh points, and the
     # hits with every other query masked off.
@@ -366,48 +509,116 @@ def knn_phase(scene, cam, card, rng, pm_dir):
             "masked_half": (eye.contiguous(), half)}
 
     max_err = 0.0
+    work = {}
     for mname, g in maps.items():
         for sname, (pts, mask) in sets.items():
-            a = kk.knn(g, g.arrays, pts, k, mask=mask)
+            evaluated = torch.zeros(pts.shape[0], dtype=torch.int32, device=dev)
+            a = kk.knn(g, g.arrays, pts, k, mask=mask, evaluated=evaluated)
             torch.cuda.synchronize()
             b = kk.knn_plain(g, g.arrays, pts, k, mask=mask)
             same = {f: bool(torch.equal(getattr(a, f), getattr(b, f)))
-                    for f in ("idx", "valid", "needs_exact", "stats")}
+                    for f in ("idx", "d2", "valid", "stage", "queued")}
             fin = a.valid
             err = float((a.d2[fin] - b.d2[fin]).abs().max()) if bool(fin.any()) else 0.0
-            d2_same = bool(torch.equal(a.d2, b.d2))
             max_err = max(max_err, err)
-            nv = n if mask is None else int(mask.sum())
-            log("knn", f"{mname:7s} {sname:11s} queries {nv}: flagged "
-                f"{int(a.needs_exact.sum())}, mean count {float(a.valid.sum(1).float().mean()):.2f}, "
-                f"columns {int(a.stats[:, 0].sum())}, photons read {int(a.stats[:, 1].sum())}; "
-                f"identical {same}, d2 identical {d2_same}, max|dd2| {err:.3g}")
-            check(all(same.values()) and d2_same, "knn", f"{mname} {sname}: kernel != plain")
+            check(all(same.values()), "knn", f"{mname} {sname}: kernels != plain: {same}")
             if mask is not None:
-                check(not bool(a.valid[~mask].any()), "knn", "masked queries returned photons")
+                check(not bool(a.valid[~mask].any()) and bool((a.stage[~mask] == 0).all()),
+                      "knn", "masked queries returned photons")
+            w = knn_work(kk, g, pts, mask, k, b)
+            valid = mask if mask is not None else torch.ones_like(a.stage, dtype=torch.bool)
+            work[(mname, sname)] = w
+            st, nv = w["stage"], w["stage"].shape[0]
+            share = lambda sel: f"{100 * float(sel.sum()) / max(nv, 1):.1f}%"
+            hist = torch.bincount(st[st > 1]).tolist()
+            rh = torch.bincount(w["rstar"]).tolist()
+            log("knn", f"{mname:7s} {sname:11s} queries {nv}: stage A {share(st == 1)}, rings "
+                f"{share(st > 1)}, scan {share(st == kk.STAGE_SCAN)}; queued {a.queued.tolist()}; "
+                f"identical {same}; photons per query: own cells {float(w['own'].float().mean()):.1f},"
+                f" evaluated by the kernels {float(evaluated[valid].float().mean()):.1f}")
+            log("knn", f"{mname:7s} {sname:11s} answering ring histogram (r: queries) "
+                f"{ {r: c for r, c in enumerate(hist) if c} }; certifying ring r* (no budget) "
+                f"{ {r: c for r, c in enumerate(rh) if c} }")
+
+    # No host sync, no brute force, no topk on the float32 exact path.
+    pts, mask = sets["eye_hits"]
+    g = maps["caustic"]
+    refuse = mock.Mock(side_effect=AssertionError("called on the float32 exact path"))
+    with mock.patch.object(pg, "_knn_brute", refuse), mock.patch.object(torch, "topk", refuse):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pg.knn(g, g.arrays, pts, k, mask=mask, exact=True, stats={})
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("knn", "photon_grid.knn(exact=True), float32: no host sync (sync debug mode 'error'), "
+        "no _knn_brute, no torch.topk")
 
     # Timing at the eye pass's launch shape, on the eye-hit set of each map.
-    rows = {}
-    pts, mask = sets["eye_hits"]
+    rows = {kern.name: [] for kern in kk.KERNELS}
     for mname, g in maps.items():
-        ms = cuda_time_ms(lambda: kk.knn(g, g.arrays, pts, k, mask=mask), reps=20, warmup=2)
+        run = lambda: kk.knn(g, g.arrays, pts, k, mask=mask)
+        t_new, t_old, old_kernel_ms, brute_ms, vs_old = [], [], None, None, "parent's kernel: not given"
+        if parent is not None:   # in turns: old, new, new, old
+            run_old = lambda: parent_knn(parent, kk, pg, g, pts, mask, k)
+            t_old.append(cuda_time_ms(run_old, reps=10, warmup=2))
+            t_new += [cuda_time_ms(run, reps=20, warmup=2) for _ in range(2)]
+            t_old.append(cuda_time_ms(run_old, reps=10, warmup=2))
+            oidx, od2, ocnt, ostats, flagged = run_old()
+            a = run()
+            ours, theirs = a.idx.sort(dim=1).values, oidx.sort(dim=1).values
+            differ = int((ours != theirs)[mask].any(dim=1).sum())
+            check(differ <= max(1, int(mask.sum()) // 1000), "knn",
+                  f"{mname}: {differ} queries' id sets differ from the parent's")
+            old_kernel_ms = cuda_time_ms(
+                lambda: parent_knn(parent, kk, pg, g, pts, mask, k, fallback=False),
+                reps=10, warmup=2)
+            brute_ms = (cuda_time_ms(lambda: pg._knn_brute(g.arrays, pts[flagged], k, g.n_photons),
+                                     reps=5) if len(flagged) else 0.0)
+            per_q = ostats[:, 1].repeat_interleave(128)[:n].double()
+            nv = float(mask.sum())
+            old_read = float(per_q[kk.sort_queries(g, pts, mask).qpos[:, 3] > 0.5].sum()) / nv
+            vs_old = (f"parent's kernel + brute fallback {sum(t_old) / 2:.4f} ms per call "
+                      f"({t_old[0]:.4f}, {t_old[1]:.4f}; new {t_new[0]:.4f}, {t_new[1]:.4f}), "
+                      f"{sum(t_old) / sum(t_new):.2f}x; of which its kernel alone (no fallback) "
+                      f"{old_kernel_ms:.4f} ms and _knn_brute on its "
+                      f"{len(flagged)} flagged rows {brute_ms:.4f} ms; its block boxes read "
+                      f"{old_read:.1f} photons per valid query; id sets differ on {differ}")
+        else:
+            t_new.append(cuda_time_ms(run, reps=20, warmup=2))
+        ms = sum(t_new) / len(t_new)
         plain_ms = cuda_time_ms(lambda: kk.knn_plain(g, g.arrays, pts, k, mask=mask), reps=2)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                run()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        dev_ms = {}
+        for kern in kk.KERNELS:
+            us = sum(getattr(e, "self_device_time_total", 0.0) for e in ev if kern.name in e.key)
+            dev_ms[kern.name] = us / 10 / 1e3 if us > 0 else None
+        w = work[(mname, "eye_hits")]
+        ops, bytes_ = w["total"]
+        bound_ms, by = bound_of(ops, bytes_)
         r = kk.knn(g, g.arrays, pts, k, mask=mask)
-        flagged = torch.nonzero(r.needs_exact).squeeze(1)
-        brute_ms = cuda_time_ms(lambda: pg._knn_brute(g.arrays, pts[flagged], k, g.n_photons),
-                                reps=3) if len(flagged) else 0.0
-        q = kk.sort_queries(g, pts, mask)
-        bound_ms, by, distinct = knn_bound(kk, g, q, r.stats)
-        rows[mname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
-        log("knn", f"time {mname:7s} {n} queries ({int(mask.sum())} valid), k={k}, "
-            f"{q.n_blocks} blocks, {int(r.stats[:, 1].sum())} photons read ({distinct} distinct): "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}), "
-            f"{ms / bound_ms:.1f}x the bound; brute fallback on the {len(flagged)} flagged "
-            f"rows {brute_ms:.3f} ms | {card}")
-    mean = lambda key: sum(r[key] for r in rows.values()) / len(rows)
-    by = max(rows.values(), key=lambda r: r["bound_ms"])["bound_by"]
-    return {"max_abs_err": max_err, "ms": mean("ms"), "plain_ms": mean("plain_ms"),
-            "bound_ms": mean("bound_ms"), "bound_by": by, "library_ms": None}
+        log("knn", f"time {mname:7s} {n} queries ({int(mask.sum())} valid), k={k}: per call "
+            f"{ms:.4f} ms with the wrapper, device ms per kernel {dev_ms}; plain {plain_ms:.3f} ms; "
+            f"bound {bound_ms:.5f} ms ({by}; {ops:.4g} operations, {bytes_:.4g} bytes), "
+            f"{ms / bound_ms:.1f}x the bound; queued {r.queued.tolist()}; {vs_old} | {card}")
+        for stage_name, kern in zip(("ring1", "rings", "scan"), kk.KERNELS):
+            b_ms, b_by = bound_of(*w[stage_name])
+            k_ms = dev_ms[kern.name]
+            rows[kern.name].append(dict(ms=k_ms if k_ms is not None else ms, plain_ms=plain_ms,
+                                        bound_ms=b_ms, bound_by=b_by))
+    out = {}
+    for name, rs in rows.items():
+        mean = lambda key: sum(x[key] for x in rs) / len(rs)
+        out[name] = {"max_abs_err": max_err, "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+                     "bound_ms": mean("bound_ms"),
+                     "bound_by": max(rs, key=lambda x: x["bound_ms"])["bound_by"],
+                     "library_ms": None}
+    return out
 
 
 def golden_phase(card):
@@ -578,17 +789,19 @@ def main() -> int:
 
     # ---- 2. build: one nvcc per source, started together ----
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         futs = [pool.submit(m.build) for m in (tk, kk)]
         parent = pool.submit(load_parent_kernel, OLD_TRAVERSE)
+        parent_knn_lib = pool.submit(load_parent_knn, OLD_KNN)
         for fut in futs:
             fut.result()
-        parent = parent.result()
+        parent, parent_knn_lib = parent.result(), parent_knn_lib.result()
     log("build", f"nvcc sm_90a builds + loads {time.perf_counter() - t0:.2f} s; parent's "
-        f"traverse.cu {'built' if parent else 'not given'}")
-    for name, m in (("traverse.cu", tk), ("knn.cu", kk)):
-        for line in m.kernel.build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+        f"traverse.cu {'built' if parent else 'not given'}, parent's knn.cu "
+        f"{'built' if parent_knn_lib else 'not given'}")
+    for name, log_text in (("traverse.cu", tk.kernel.build_log), ("knn.cu", kk.library.build_log)):
+        for line in log_text.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line or "entry" in line:
                 log("build", f"{name}: {line.strip()}")
 
     # ---- scene (shared by phases 3-5) ----
@@ -613,14 +826,16 @@ def main() -> int:
     # ---- 4. main path at full size ----
     cfg = mt.RenderConfig(max_bounces=64)
     stats = {}
-    tk.kernel.launches = kk.kernel.launches = 0
+    tk.kernel.launches = 0
+    for kern in kk.KERNELS:
+        kern.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hdr = mt.render(scene, 0, cfg, stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = tk.kernel.launches
-    log("render", f"launches: traversal {launches}, k-NN {kk.kernel.launches}")
+    log("render", f"launches: traversal {launches}, k-NN {[kern.launches for kern in kk.KERNELS]}")
     spp = SQRTSPP ** 2
     cam_rays = cam.width * cam.height * spp
     rays_traced = int(stats["rays"])
@@ -692,7 +907,7 @@ def main() -> int:
     # ---- 6-8. the photon mapper ----
     with tempfile.TemporaryDirectory(prefix="chip_smoke_photons_") as pm_dir:
         pm_launches = photon_phase(scene, card, pm_dir)
-        knn_row = knn_phase(scene, cam, card, rng, pm_dir)
+        knn_rows = knn_phase(scene, cam, card, rng, pm_dir, parent_knn_lib)
     golden_phase(card)
 
     mean = lambda key: sum(r[key] for r in timing.values()) / len(timing)
@@ -708,14 +923,14 @@ def main() -> int:
         "bound_ms": mean("bound_ms"),
         "bound_by": timing["camera"]["bound_by"],
         "library_ms": None,
-    }, {
-        "name": "photon_knn_one_ring",
+    }] + [{
+        "name": name,
         "route": "cuda",
         "source": "mcrt_tpu_torch/csrc/knn.cu",
         "replaces": "mcrt_tpu/accel/knn_kernel.py:59",
-        "launches": pm_launches,  # the photon mapper's main path (phase 6)
-        **knn_row,
-    }]
+        "launches": pm_launches[name],   # the photon mapper's main path (phase 6)
+        **knn_rows[name],
+    } for name in ("knn_ring1", "knn_rings", "knn_scan")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

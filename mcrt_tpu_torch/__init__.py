@@ -3,7 +3,7 @@
 Beside the JAX package, not built on it: this package imports torch and
 nothing of `mcrt_tpu` or JAX. Entry points run on the CUDA device unless the
 caller passes device="cpu". The cluster-BVH traversal (csrc/traverse.cu) and
-the photon mapper's one-ring k-NN (csrc/knn.cu) are hand-written CUDA kernels,
+the photon mapper's exact k-NN (csrc/knn.cu) are hand-written CUDA kernels,
 compiled with nvcc at first use. `python -m mcrt_tpu_torch` is the CLI.
 """
 from .scene.loader import Scene  # noqa: F401

@@ -11,14 +11,16 @@ the fastest axis. A query reads the photons of the 27 cells around it:
   uniform random M-subsample whose photons carry weight occ/M, so the flux-sum
   estimate stays unbiased.
 * `knn(..., exact=True)`: the exact k-NN at any density. In float32 with
-  k <= KPAD on a non-empty map the one-ring search is the k-NN kernel
-  (knn_kernel.knn: the CUDA kernel on the card, its plain version on the CPU);
-  otherwise the capped search. Either way the queries it flags (fewer than k
-  photons within cell_size, or a subsampled cell touched) are re-answered by
-  `_knn_brute` over the whole map. Only the flagged rows are computed, where
-  the JAX package computes every row and selects.
+  k <= KPAD on a non-empty map it is the staged k-NN of knn_kernel.knn (the
+  CUDA kernels on the card, their plain version on the CPU), whose answer is
+  final: one ring, then widening rings, then a whole-map scan, all on the
+  device with no host sync. Otherwise (float64, k > KPAD) it is the capped
+  search, whose flagged queries (fewer than k photons within cell_size, or
+  a subsampled cell touched) are re-answered by `_knn_brute` over the whole
+  map; only the flagged rows are computed, where the JAX package computes
+  every row and selects.
 
-On the card, float64 queries raise in exact mode: the kernel takes float32.
+On the card, float64 queries raise in exact mode: the kernels take float32.
 """
 from __future__ import annotations
 
@@ -212,17 +214,15 @@ def _knn_brute(arrays: PhotonGridArrays, points, k: int, n_photons: int,
 
 
 def _knn_kernel_ok(grid: PhotonGrid, dtype, k: int) -> bool:
-    """True when the k-NN kernel serves this exact query: float32, k within its
+    """True when the staged k-NN serves this exact query: float32, k within its
     output width, a non-empty map (the JAX package's `_knn_pallas_ok`, less its
-    TPU check: the wrapper chooses the kernel or its plain version by device)."""
+    TPU check: the wrapper chooses the kernels or their plain version by device)."""
     return grid.n_photons > 0 and dtype == torch.float32 and k <= knn_kernel.KPAD
 
 
 def _exact_fallback(arrays, points, k, N, res, needs, stats):
     """Re-answer the flagged queries with `_knn_brute`, computing their rows only.
-    With a `stats` dict: "knn_flagged", "knn_calls", and on the card a pair of
-    CUDA events around each fallback in "knn_fallback_events" (read them after
-    synchronising)."""
+    With a `stats` dict, adds "knn_flagged" and "knn_calls"."""
     d2k, idxk, valid, wk = res
     rows = torch.nonzero(needs).squeeze(1)     # one host sync per call
     n_flag = int(rows.shape[0])
@@ -231,19 +231,12 @@ def _exact_fallback(arrays, points, k, N, res, needs, stats):
         stats["knn_calls"] = stats.get("knn_calls", 0) + 1
     if n_flag == 0:
         return d2k, idxk, valid, wk
-    events = None
-    if stats is not None and points.is_cuda:
-        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        events[0].record()
     bd2, bix, bval = _knn_brute(arrays, points[rows], k, N)
     d2k, idxk, valid, wk = d2k.clone(), idxk.clone(), valid.clone(), wk.clone()
     d2k[rows] = bd2.to(d2k.dtype)
     idxk[rows] = bix
     valid[rows] = bval
     wk[rows] = 1.0
-    if events is not None:
-        events[1].record()
-        stats.setdefault("knn_fallback_events", []).append(events)
     return d2k, idxk, valid, wk
 
 
@@ -253,9 +246,13 @@ def knn(grid: PhotonGrid, arrays: PhotonGridArrays, points, k: int, mask=None,
 
     Returns (d2 (Q,k), idx (Q,k) int32, valid (Q,k), w (Q,k) flux weights);
     invalid slots have d2 = +inf. `mask` (Q,) bool marks the queries whose
-    result matters: masked-off lanes never trigger the exact fallback. With a
-    `stats` dict, exact mode adds "knn_queries" (an int or a device count) and
-    the fallback's counts (see _exact_fallback)."""
+    result matters: masked-off lanes are not searched in exact mode. With a
+    `stats` dict, exact mode adds "knn_queries" (an int or a device count),
+    "knn_calls", and "knn_flagged": on the staged k-NN's path the queries that
+    went on to its stage B, and "knn_scanned" those that reached its
+    whole-map scan (device counts: read them once, after the render); on the
+    capped path the queries re-answered by the brute force (see
+    _exact_fallback)."""
     dtype = points.dtype
     Q = points.shape[0]
     N = grid.n_photons
@@ -263,11 +260,14 @@ def knn(grid: PhotonGrid, arrays: PhotonGridArrays, points, k: int, mask=None,
         stats["knn_queries"] = stats.get("knn_queries", 0) + (Q if mask is None else mask.sum())
     if exact and points.device.type == "cuda" and dtype != torch.float32:
         raise ValueError("knn(exact=True) on the card takes float32 queries "
-                         "(the k-NN kernel is float32)")
+                         "(the k-NN kernels are float32)")
     if exact and _knn_kernel_ok(grid, dtype, k):
         r = knn_kernel.knn(grid, arrays, points, k, mask=mask)
-        return _exact_fallback(arrays, points, k, N, (r.d2, r.idx, r.valid, r.w),
-                               r.needs_exact, stats)
+        if stats is not None:
+            stats["knn_calls"] = stats.get("knn_calls", 0) + 1
+            stats["knn_flagged"] = stats.get("knn_flagged", 0) + r.queued[0]
+            stats["knn_scanned"] = stats.get("knn_scanned", 0) + r.queued[1]
+        return r.d2, r.idx, r.valid, r.w
 
     dev = points.device
     M = grid.m_per_cell

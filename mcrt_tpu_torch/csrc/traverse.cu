@@ -100,6 +100,11 @@ constexpr int kGroups = kTile / kGroup;
 constexpr int kRecW = 20;          // floats per triangle record row (19 used)
 constexpr int kRowBytes = kRecW * 4;
 constexpr int kHeapShared = 4096;  // heap entries kept in shared memory
+// Shared heap slots of a block over C clusters: an even count, so that the
+// float4 tiles after the 8-byte slots stay 16-byte aligned for any C.
+__host__ __device__ constexpr int heap_slots(int C) {
+  return ((C < kHeapShared ? C : kHeapShared) + 1) & ~1;
+}
 constexpr int kMaxK = 256;         // rays per block at most; the block has 2 kMaxK + 32 threads
 constexpr int kThreads = 2 * kMaxK + 32;
 constexpr int kErrSmem = -1;
@@ -316,8 +321,8 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(
   extern __shared__ __align__(128) unsigned char smem[];
   float4* s_rec = reinterpret_cast<float4*>(smem);                        // 2 x Sp x 5
   unsigned long long* s_heap =
-      reinterpret_cast<unsigned long long*>(s_rec + 2 * Sp * 5);          // min(C, kHeapShared)
-  float4* s_bb = reinterpret_cast<float4*>(s_heap + min(C, kHeapShared)); // 2 x kTile x 2
+      reinterpret_cast<unsigned long long*>(s_rec + 2 * Sp * 5);          // heap_slots(C)
+  float4* s_bb = reinterpret_cast<float4*>(s_heap + heap_slots(C));      // 2 x kTile x 2
   float4* s_grp = s_bb + 4 * kTile;                                       // 2 x kGroups x 2
   float* s_bt = reinterpret_cast<float*>(s_grp + 4 * kGroups);            // 2 x K published best t
   int* s_tri = reinterpret_cast<int*>(s_bt + 2 * K);                      // 2 x Sp
@@ -571,7 +576,7 @@ int launch(const void* rays, const void* cl_bb, const void* rec, const void* tri
   // Dynamic shared memory: two record and id buffers, the shared heap, an AABB
   // tile and the double-buffered published best t.
   const size_t smem = static_cast<size_t>(Sp) * 2 * (kRowBytes + 4) +
-                      static_cast<size_t>(C < kHeapShared ? C : kHeapShared) * 8 +
+                      static_cast<size_t>(heap_slots(C)) * 8 +
                       sizeof(float) * (2 * kTile * 8 + 2 * kGroups * 8 + 2 * K);
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);

@@ -11,7 +11,8 @@ source/integrator/photon-mapper/photon-mapper.cpp):
   stores overflow a buffer is run again with a larger one: each photon path is
   fixed by its (light, emission) ids, so the set of photons does not change.
 * The maps are uniform photon grids (accel/photon_grid), searched by the
-  one-ring k-NN kernel (accel/knn_kernel) with an exact fallback.
+  exact staged k-NN (accel/knn_kernel: one ring, widening rings, the whole
+  map), on the card with no fallback and no host sync.
 * Pass 2 (sampleRay, :279-341): a masked wavefront follows specular chains;
   the caustic estimate is taken at every non-dirac interaction, the global
   estimate one diffuse bounce later unless `direct_visualization`. Estimates

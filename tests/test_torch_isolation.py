@@ -132,10 +132,10 @@ def test_knn_wrapper_takes_cpu_tensors_to_the_plain_version():
     p = rng.rand(500, 3)
     grid = pg.build_photon_grid(p, p, p, 8, device="cpu")
     q = torch.as_tensor(rng.rand(40, 3), dtype=torch.float32)
-    before = kk.kernel.launches
+    before = [kern.launches for kern in kk.KERNELS]
     a = kk.knn(grid, grid.arrays, q, 8)
     b = kk.knn_plain(grid, grid.arrays, q, 8)
-    assert kk.kernel.launches == before and kk.kernel.lib is None
+    assert [kern.launches for kern in kk.KERNELS] == before and kk.library.lib is None
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 

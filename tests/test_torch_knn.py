@@ -4,16 +4,21 @@ The grids are built by the JAX package and brought into the port with
 convert.photon_grid_from_numpy, so both search the same sorted photons: the
 maps of tests/test_knn_kernel.py and tests/test_photon.py (a volume, a thin
 surface, a caustic hot spot over a sparse background, a sparse map), made by
-tests/test_torch_knn_on_card.py::grid_and_queries.
+tests/test_torch_knn_on_card.py::grid_and_queries, with three query sets:
+each map's own queries, queries outside the map's box, and queries on cell
+faces (tests/test_torch_knn_on_card.py::query_set).
 
 Bars:
-- the k-NN kernel's plain version (knn_kernel.knn_plain, the CUDA kernel's
-  CPU twin) against the Pallas kernel in interpret mode and against the JAX
-  exact k-NN: identical id sets on the queries neither flags, r_k within
-  rtol 1e-5 (float32); a query the port answers where the Pallas kernel
-  flags it equals brute force;
-- photon_grid.knn(exact=True) against the JAX one on every query: identical id
-  sets, r_k within rtol 1e-5 in float32 and 1e-12 in float64;
+- the staged k-NN's plain version (knn_kernel.knn_plain, the CUDA kernels'
+  CPU twin) against the Pallas kernel in interpret mode on the queries the
+  Pallas kernel does not flag, and against brute force on those it flags;
+  against the JAX exact k-NN on every masked query: identical id sets, r_k
+  within rtol 1e-5 (float32);
+- photon_grid.knn(exact=True) against the JAX one on every masked query:
+  identical id sets, r_k within rtol 1e-5 in float32 and 1e-12 in float64;
+  in float32 it never calls the brute force;
+- each query's stage against a float64 recount of the ring that certifies
+  it;
 - the capped search: the same (id, weight) pairs, d2 within rtol 1e-12;
 - save/load round trips, and a load of an .npz the JAX package wrote."""
 import numpy as np
@@ -23,7 +28,7 @@ import torch
 from mcrt_tpu_torch import convert
 from mcrt_tpu_torch.accel import knn_kernel as tkk
 from mcrt_tpu_torch.accel import photon_grid as tpg
-from test_torch_knn_on_card import KINDS, photon_set
+from test_torch_knn_on_card import KINDS, QUERY_SETS, photon_set, query_set
 
 jnp = pytest.importorskip("jax.numpy")
 from mcrt_tpu.accel import photon_grid as jpg  # noqa: E402
@@ -34,13 +39,16 @@ torch.set_num_threads(1)  # pytest-xdist runs several workers on the same cores
 K_OF = {"volume": 20, "surface": 50, "hotspot": 32, "sparse": 10}
 
 
-def _jax_grid(kind, dtype, seed=0, **kw):
+def _jax_grid(kind, dtype, seed=0, qset="own", **kw):
     rng = np.random.RandomState(seed)
     pos, q = photon_set(kind, rng)
     d = rng.normal(size=pos.shape)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     grid = jpg.build_photon_grid(pos, d, rng.rand(*pos.shape), K_OF[kind], dtype, **kw)
     mask = rng.rand(len(q)) < 0.9
+    if qset != "own":
+        q = query_set(qset, grid.bb_min, grid.cell_size, grid.dims, q)
+        mask = np.random.RandomState(seed + 1).rand(len(q)) < 0.9
     return grid, q, mask
 
 
@@ -70,6 +78,16 @@ def _brute_sets(jgrid, q, k):
     return out
 
 
+def _check_sorted_full(r, mask, k, n):
+    """Every masked query has min(k, N) neighbours sorted by (d2, row); the
+    others none."""
+    valid, d2, idx = r.valid.numpy(), r.d2.numpy(), r.idx.numpy()
+    assert (valid.sum(axis=1)[mask] == min(k, n)).all() and not valid[~mask].any()
+    big = np.where(valid, d2, np.inf)
+    order = np.lexsort((np.where(valid, idx, np.iinfo(np.int32).max), big), axis=1)
+    assert (order == np.arange(k)[None, :]).all()
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_plain_kernel_matches_pallas_interpret(kind):
     jgrid, q, mask = _jax_grid(kind, np.float32)
@@ -81,50 +99,45 @@ def test_plain_kernel_matches_pallas_interpret(kind):
         jgrid, jgrid.arrays, jnp.asarray(q32), k, mask=jnp.asarray(mask), interpret=True))
     ours = _sets(r.idx, r.valid)
     theirs = _sets(jidx, jvalid)
-    needs = r.needs_exact.numpy()
-    assert not needs[~mask].any() and not r.valid.numpy()[~mask].any()
-    both = mask & ~needs & ~jneeds
+    both = mask & ~jneeds
     for i in np.nonzero(both)[0]:
         assert ours[i] == theirs[i], i
     np.testing.assert_allclose(_r2k(r.d2, r.valid)[both], _r2k(jd2, jvalid)[both], rtol=1e-5)
-    # The port flags only queries with fewer than min(k, N) photons within the
-    # cell radius; those the Pallas kernel flags and the port answers (a box or
-    # staging overflow there) must be exact.
-    only_port = np.nonzero(mask & ~needs & jneeds)[0]
+    # The port answers every masked query itself; those the Pallas kernel
+    # flags for the brute fallback must equal brute force.
+    only_port = np.nonzero(mask & jneeds)[0]
     if len(only_port):
         brute = _brute_sets(jgrid, q32[only_port], k)
         for i, b in zip(only_port, brute):
             assert ours[i] == b, i
-    # Every answered query has exactly min(k, N) neighbours.
-    counts = r.valid.numpy().sum(axis=1)
-    assert (counts[mask & ~needs] == min(k, jgrid.n_photons)).all()
-    # The result is sorted by (d2, row).
-    d2 = np.where(r.valid.numpy(), r.d2.numpy(), np.finfo(np.float32).max)
-    assert (np.diff(d2, axis=1) >= 0).all()
+    _check_sorted_full(r, mask, k, jgrid.n_photons)
+    assert (r.stage.numpy()[mask] != 0).all() and (r.stage.numpy()[~mask] == 0).all()
 
 
+@pytest.mark.parametrize("qset", QUERY_SETS)
 @pytest.mark.parametrize("kind", KINDS)
-def test_plain_kernel_matches_jax_exact(kind):
-    jgrid, q, mask = _jax_grid(kind, np.float32)
+def test_plain_kernel_matches_jax_exact(kind, qset):
+    jgrid, q, mask = _jax_grid(kind, np.float32, qset=qset)
     k = K_OF[kind]
     q32 = q.astype(np.float32)
     tgrid = _port_grid(jgrid)
     r = tkk.knn_plain(tgrid, tgrid.arrays, torch.as_tensor(q32), k, mask=torch.as_tensor(mask))
     jd2, jidx, jvalid, _ = map(np.asarray, jpg.knn(jgrid, jgrid.arrays, jnp.asarray(q32), k,
                                                    mask=jnp.asarray(mask), exact=True))
-    ok = mask & ~r.needs_exact.numpy()
     ours, theirs = _sets(r.idx, r.valid), _sets(jidx, jvalid)
-    for i in np.nonzero(ok)[0]:
+    for i in np.nonzero(mask)[0]:
         assert ours[i] == theirs[i], i
-    np.testing.assert_allclose(_r2k(r.d2, r.valid)[ok], _r2k(jd2, jvalid)[ok], rtol=1e-5)
+    np.testing.assert_allclose(_r2k(r.d2, r.valid)[mask], _r2k(jd2, jvalid)[mask], rtol=1e-5)
+    _check_sorted_full(r, mask, k, jgrid.n_photons)
 
 
+@pytest.mark.parametrize("qset", QUERY_SETS)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("kind", KINDS)
-def test_exact_knn_matches_jax(kind, dtype):
-    """photon_grid.knn(exact=True): the kernel's plain version (float32) or the
-    capped search (float64), then the brute fallback on the flagged rows."""
-    jgrid, q, mask = _jax_grid(kind, dtype)
+def test_exact_knn_matches_jax(kind, dtype, qset):
+    """photon_grid.knn(exact=True): the staged k-NN's plain version (float32),
+    or the capped search and the brute fallback on its flagged rows (float64)."""
+    jgrid, q, mask = _jax_grid(kind, dtype, qset=qset)
     k = K_OF[kind]
     qd = q.astype(dtype)
     tgrid = _port_grid(jgrid)
@@ -140,7 +153,120 @@ def test_exact_knn_matches_jax(kind, dtype):
     np.testing.assert_allclose(_r2k(d2, valid)[mask], _r2k(jd2, jvalid)[mask], rtol=rtol)
     assert (w.numpy()[mask][valid.numpy()[mask]] == 1.0).all()   # exact: unit weights
     assert int(stats["knn_queries"]) == mask.sum() and stats["knn_calls"] == 1
-    assert 0 <= stats["knn_flagged"] <= mask.sum()
+    assert 0 <= int(stats["knn_flagged"]) <= mask.sum()
+    if dtype == np.float32:
+        assert 0 <= int(stats["knn_scanned"]) <= int(stats["knn_flagged"])
+
+
+@pytest.mark.parametrize("k", [40, 56])
+def test_exact_knn_k_at_least_n(k):
+    """k >= N on the sparse map (40 photons): every masked query gets all N
+    photons, sorted by (d2, row), as the JAX package's whole-map k-NN
+    `_knn_brute` gives them. (The JAX package's exact path on the CPU returns
+    its capped result when N <= k; its TPU path and the port return the N.)"""
+    jgrid, q, mask = _jax_grid("sparse", np.float32, qset="outside")
+    n = jgrid.n_photons
+    assert k >= n
+    q32 = q.astype(np.float32)
+    tgrid = _port_grid(jgrid)
+    r = tkk.knn_plain(tgrid, tgrid.arrays, torch.as_tensor(q32), k, mask=torch.as_tensor(mask))
+    d2, idx, valid, _ = tpg.knn(tgrid, tgrid.arrays, torch.as_tensor(q32), k,
+                                mask=torch.as_tensor(mask), exact=True)
+    for x, y in zip((d2, idx, valid), (r.d2, r.idx, r.valid)):
+        assert torch.equal(x, y)
+    jd2, jidx, jvalid = map(np.asarray, jpg._knn_brute(jgrid.arrays, jnp.asarray(q32), k, n))
+    ours, theirs = _sets(r.idx, r.valid), _sets(jidx, jvalid)
+    for i in np.nonzero(mask)[0]:
+        assert ours[i] == theirs[i] == frozenset(range(n)), i
+    _check_sorted_full(r, mask, k, n)
+
+
+def test_float32_exact_path_never_calls_the_brute_force(monkeypatch):
+    """photon_grid.knn(exact=True) in float32 takes the staged k-NN's answer as
+    final: with _knn_brute and torch.topk made to raise, it still answers the
+    hot spot's outside queries, which reach the whole-map scan."""
+
+    def refuse(*a, **kw):
+        raise AssertionError("the float32 exact path must not call this")
+
+    jgrid, q, mask = _jax_grid("hotspot", np.float32, qset="outside")
+    tgrid = _port_grid(jgrid)
+    monkeypatch.setattr(tpg, "_knn_brute", refuse)
+    monkeypatch.setattr(torch, "topk", refuse)
+    stats = {}
+    d2, idx, valid, w = tpg.knn(tgrid, tgrid.arrays, torch.as_tensor(q.astype(np.float32)), 32,
+                                mask=torch.as_tensor(mask), exact=True, stats=stats)
+    assert int(stats["knn_scanned"]) > 0
+    assert (valid.numpy().sum(axis=1)[mask] == 32).all()
+
+
+def _recount_rings(jgrid, q32, k, cells):
+    """A float64 recount, in numpy, of the ring that certifies each query:
+    (lo, hi) (Q,) int, the first ring that the certification rule may pass
+    and the first it must pass, given float32 roundings and the coordinate
+    slack (the kernels' R2c sits between the two). A ring certifies when the
+    k-th d2 over the whole map is at most the squared distance from the
+    query to the part of the grid beyond the nearest face of the ring's box
+    that is not on the grid's boundary. `cells` (Q, 3) are the queries'
+    clamped cells, which centre the rings."""
+    pos = np.asarray(jgrid.arrays.pos, np.float64)
+    n = len(pos)
+    dims = np.asarray(jgrid.dims)
+    bb = np.asarray(jgrid.bb_min, np.float64)
+    cell = jgrid.cell_size
+    hi_g = bb + dims * cell
+    slack = 2 * max(np.abs(bb).max(), np.abs(hi_g).max()) * 2.0 ** -20
+    qd = q32.astype(np.float64)
+    d2 = ((qd[:, None, :] - pos[None]) ** 2).sum(-1)
+    kth = np.sort(d2, axis=1)[:, k - 1] if k <= n else np.full(len(qd), np.inf)
+    out = np.maximum(np.maximum(bb - qd, qd - hi_g), 0.0)
+    first = [np.zeros(len(qd), np.int64), np.zeros(len(qd), np.int64)]
+    for r in range(1, int(dims.max()) + 2):
+        lo = np.maximum(cells - r, 0)
+        hi = np.minimum(cells + r, dims - 1)
+        for j, shrink in enumerate((False, True)):      # may pass, must pass
+            widen = lambda x: np.maximum(x - slack, 0.0) if shrink else x + slack
+            o2 = widen(out) ** 2
+            r2 = np.full(len(qd), np.inf)
+            for a in range(3):
+                rest = o2.sum(1) - o2[:, a]
+                gap_lo = widen(qd[:, a] - (bb[a] + lo[:, a] * cell))
+                gap_hi = widen(bb[a] + (hi[:, a] + 1) * cell - qd[:, a])
+                r2 = np.where(lo[:, a] > 0, np.minimum(r2, gap_lo ** 2 + rest), r2)
+                r2 = np.where(hi[:, a] < dims[a] - 1, np.minimum(r2, gap_hi ** 2 + rest), r2)
+            r2 = r2 * ((1.0 - 1e-5) if shrink else (1.0 + 1e-5))
+            ok = (kth <= r2) & (first[j] == 0)
+            first[j][ok] = r
+    return first[0], first[1]
+
+
+@pytest.mark.parametrize("qset", QUERY_SETS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_stage_matches_float64_recount(kind, qset):
+    """Each masked query's stage is the first ring that certifies it (or the
+    scan, when that ring's box exceeds the cell budget), by a float64
+    brute-force recount."""
+    jgrid, q, mask = _jax_grid(kind, np.float32, qset=qset)
+    k = K_OF[kind]
+    q32 = q.astype(np.float32)
+    tgrid = _port_grid(jgrid)
+    qt = torch.as_tensor(q32)
+    r = tkk.knn_plain(tgrid, tgrid.arrays, qt, k, mask=torch.as_tensor(mask))
+    srt = tkk.sort_queries(tgrid, qt)
+    cells = np.empty((len(q), 3), np.int64)
+    cells[srt.qcell[:, 3].numpy()] = srt.qcell[:, :3].numpy()
+    lo, hi = _recount_rings(jgrid, q32, k, cells)
+    dims = np.asarray(jgrid.dims)
+    box = lambda rr: (np.minimum(cells + rr[:, None], dims - 1)
+                      - np.maximum(cells - rr[:, None], 0) + 1).prod(axis=1)
+    stage = r.stage.numpy().astype(np.int64)
+    scan = stage == tkk.STAGE_SCAN
+    ring = mask & ~scan
+    assert ((lo <= stage) & (stage <= hi))[ring].all()
+    assert (box(stage)[ring & (stage > 1)] <= tkk.CELL_BUDGET).all()
+    assert (box(hi)[mask & scan] > tkk.CELL_BUDGET).all()
+    assert (lo[mask] == hi[mask]).mean() > 0.9     # the slack decides few queries
+    assert (stage[~mask] == 0).all()
 
 
 @pytest.mark.parametrize("case", ["hotspot", "point"])
