@@ -49,6 +49,25 @@ Phases (each prints its own lines; any failed check exits non-zero):
   8. golden   tests/scenes/caustic_sphere.json photon-rendered at 48x48, 64 spp,
               2e5 emissions, against the C++ reference's
               tests/goldens/caustic_sphere_48_s8.tga with tests/test_e2e_golden.py's bars
+  9. grad     the differentiable path on the height field, float32:
+              a. three plain SGD steps of parallel.sharding.train_step(with_bvh=True)
+                 at 512x512, 1 spp, max_bounces 64, from perturbed material tables
+                 toward a target rendered at the scene's own; each step's forward and
+                 backward run under CUDA's sync debug mode set to error, and print the
+                 loss, the forward and backward times (CUDA events), the traversal
+                 launches of the forward and of the backward's recompute, and the
+                 peak memory; the loss and gradients must be finite, the reflectance
+                 gradient nonzero, and the loss must fall
+              b. bench.py's bench_bwd point: trace_streamed(fixed_trips=64) over 2^17
+                 paths a chunk at 1024 spp through 8192 lanes, loss mean(pixel
+                 mean^2) over the four tables, 4 chunks: rays traced per second
+                 forward+backward and forward alone (no_grad), the peak memory with
+                 and without remat, the traversal launches per trip, and a profiled
+                 chunk's device-busy share and the traversal's share of device time
+              c. the 64x64 camera, 1 spp, max_bounces 8, remat off: the loss and the
+                 four gradient tables through the kernel, through the plain traversal
+                 (patched in as in phase 5) and through the kernel again; losses
+                 identical, gradients within 1e-4 of each table's largest |g|
 
 The line before the last names the card and its power limit; the line before
 that is the JSON kernel table; the last line is the JSON result. Imports no JAX
@@ -94,6 +113,21 @@ PHOTON_MAP = {"emissions": 5e5, "caustic_factor": 10.0, "k_nearest_photons": 50,
               "direct_visualization": False}
 PM_SQRTSPP = 2
 KNN_QUERIES = 1 << 14
+# Phase 9, the differentiable path on the same scene. 9a: plain SGD steps of the
+# train step at 512x512, 1 spp, 64 bounces; the step size is fixed. 9b: bench.py's
+# bench_bwd point (2^17 paths a chunk at 1024 spp, 8192 lanes, 64 trips, four
+# chunks). 9c: the kernel's gradients against the plain traversal's at 64x64,
+# 1 spp, 8 bounces.
+GRAD_BOUNCES = 64
+SGD_STEPS = 3
+SGD_LR = 3.0
+BWD_PATHS = 1 << 17
+BWD_SPP = 1024
+BWD_LANES = 8192
+BWD_TRIPS = 64
+BWD_CHUNKS = 4
+CHECK_GRAD_WIDTH = 64
+CHECK_GRAD_BOUNCES = 8
 ROOT = pathlib.Path(__file__).resolve().parent
 # The parent commit's traverse.cu, when one is handed in beside the checkout (it
 # is not part of the repo): phase 3 then times it in turns with this tree's
@@ -653,6 +687,260 @@ def golden_phase(card):
           "golden", "the caustic render misses the reference's bars")
 
 
+def perturbed(truth):
+    """The four train tables moved off the scene's own values, inside their
+    valid ranges: reflectance x0.8, roughness +0.1, the dielectrics' ior +0.05
+    (a material without one keeps its -1), transparency x0.9 (T = 1 is a
+    stationary point of the layered mix)."""
+    import torch
+
+    ior, tr = truth["mat_ior"], truth["mat_transparency"]
+    return {"mat_reflectance": truth["mat_reflectance"] * 0.8,
+            "mat_specular_roughness": truth["mat_specular_roughness"] + 0.1,
+            "mat_ior": torch.where(ior > 1.0, ior + 0.05, ior),
+            "mat_transparency": tr * 0.9}
+
+
+def sgd_update(params, grads, truth):
+    """One plain SGD step of size SGD_LR, clamped to the valid ranges; a
+    material without an ior keeps its -1."""
+    import torch
+
+    new = {k: v - SGD_LR * grads[k] for k, v in params.items()}
+    ior = truth["mat_ior"]
+    return {"mat_reflectance": new["mat_reflectance"].clamp(0.0, 1.0),
+            "mat_specular_roughness": new["mat_specular_roughness"].clamp(1e-3, 1.0),
+            "mat_ior": torch.where(ior > 1.0, new["mat_ior"].clamp(min=1.0), ior),
+            "mat_transparency": new["mat_transparency"].clamp(0.0, 1.0)}
+
+
+class GradSplit:
+    """Wraps torch.autograd.grad: records a CUDA event and the traversal's
+    launch count where the backward pass starts, so a train step's time and
+    launches split into its forward and its backward (with the recompute)."""
+
+    def __init__(self, tk):
+        import torch
+
+        self.tk, self.real = tk, torch.autograd.grad
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.launches = 0
+
+    def __call__(self, *args, **kwargs):
+        self.start.record()
+        self.launches = self.tk.kernel.launches
+        return self.real(*args, **kwargs)
+
+
+def grad_phase(scene, cbvh, card):
+    """Phase 9: the differentiable path. Returns the traversal's launches over
+    9a's train steps (forward and recompute)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcrt_tpu_torch.camera import camera as cam_mod
+    from mcrt_tpu_torch.camera import film as film_mod
+    from mcrt_tpu_torch.integrator import path_tracer as pt
+    from mcrt_tpu_torch.ops import cluster_bvh
+    from mcrt_tpu_torch.ops import traverse_kernel as tk
+    from mcrt_tpu_torch.parallel import sharding
+
+    dev = cbvh.rec.device
+    f32 = torch.float32
+    cam = scene.cameras[0]
+    meta = scene.meta()
+    tables = scene.tables(np.float32, dev)
+    truth = {k: getattr(tables, k) for k in sharding.DEFAULT_TRAIN_PARAMS}
+    film_cfg = film_mod.FilmConfig.from_json(cam.width, cam.height, cam.film)
+    cfg = pt.PTConfig(max_bounces=GRAD_BOUNCES)
+    n = cam.width * cam.height
+    lin = torch.arange(n, device=dev)
+    px, py, si = lin % cam.width, lin // cam.width, torch.zeros_like(lin)
+
+    # ---- 9a: SGD steps of the train step at full width ----
+    image = sharding.image_step(meta, cfg, cam, film_cfg, f32, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        target = image(tables, cbvh, truth, px, py, si)
+    torch.cuda.synchronize()
+    log("grad", f"target {cam.width}x{cam.height}, 1 spp, max_bounces {GRAD_BOUNCES}: "
+        f"{time.perf_counter() - t0:.3f} s, mean {float(target.mean()):.6f} | {card}")
+    check(bool(torch.isfinite(target).all()) and float(target.mean()) > 0.0, "grad", "bad target")
+    step = sharding.train_step(meta, cfg, cam, film_cfg, f32, with_bvh=True, device=dev)
+    params = perturbed(truth)
+    split = GradSplit(tk)
+    losses, train_launches = [], 0
+    for i in range(SGD_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a, c = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        before = tk.kernel.launches
+        t0 = time.perf_counter()
+        a.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with mock.patch.object(torch.autograd, "grad", split):
+                loss, grads = step(tables, cbvh, params, px, py, si, target)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        c.record()
+        loss_v = float(loss)            # the step's one host read
+        c.synchronize()
+        wall = time.perf_counter() - t0
+        fwd_l, bwd_l = split.launches - before, tk.kernel.launches - split.launches
+        train_launches += fwd_l + bwd_l
+        top = {k: float(g.abs().max()) for k, g in grads.items()}
+        log("grad", f"step {i}: loss {loss_v:.9g}; forward {a.elapsed_time(split.start):.1f} ms, "
+            f"backward {split.start.elapsed_time(c):.1f} ms, wall {wall:.3f} s; traversal "
+            f"launches forward {fwd_l}, recompute {bwd_l}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; largest |g| "
+            + ", ".join(f"{k[4:]} {v:.4g}" for k, v in top.items()) + f" | {card}")
+        check(np.isfinite(loss_v) and all(bool(torch.isfinite(g).all()) for g in grads.values()),
+              "grad", f"step {i}: non-finite loss or gradient")
+        check(top["mat_reflectance"] > 0.0, "grad", f"step {i}: zero reflectance gradient")
+        check(fwd_l == 2 * GRAD_BOUNCES and bwd_l == 2 * GRAD_BOUNCES, "grad",
+              f"step {i}: expected {2 * GRAD_BOUNCES} traversal launches forward and as many "
+              f"in the recompute, got {fwd_l} and {bwd_l}")
+        losses.append(loss_v)
+        params = sgd_update(params, grads, truth)
+    log("grad", f"{SGD_STEPS} SGD steps of size {SGD_LR}: loss {losses[0]:.9g} -> {losses[-1]:.9g} "
+        f"(no host sync inside a step: sync debug mode 'error') | {card}")
+    check(losses[-1] < losses[0], "grad", "the loss did not fall")
+
+    # ---- 9b: forward+backward at bench.py's bench_bwd point ----
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in perturbed(truth).items()}
+    # Chunks side by side along the middle row: the top rows see only sky,
+    # where every path ends at its first ray.
+    first = (cam.height // 2) * cam.width * BWD_SPP
+
+    def chunk(i, remat=True):
+        t = tables._replace(**leaves)
+        ifn = cluster_bvh.make_intersect_fn(t, meta, cbvh)
+        out, rays = pt.trace_streamed(t, meta, cfg, cam, BWD_SPP, first + i * BWD_PATHS,
+                                      BWD_PATHS, BWD_LANES, intersect_fn=ifn,
+                                      fixed_trips=BWD_TRIPS, remat=remat)
+        pixel_mean = out.view(-1, BWD_SPP, 3).sum(dim=1) / BWD_SPP
+        return (pixel_mean ** 2).mean(), rays
+
+    def fwd_bwd(i, remat=True):
+        """(loss, rays, gradients, the traversal's launches of the forward)."""
+        mark = tk.kernel.launches
+        loss, rays = chunk(i, remat)
+        fwd = tk.kernel.launches - mark
+        return loss.detach(), rays, torch.autograd.grad(loss, list(leaves.values())), fwd
+
+    peak, base = {}, torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = tk.kernel.launches
+    rays, fwd_launches = [], 0
+    t0 = time.perf_counter()
+    for i in range(BWD_CHUNKS):
+        loss, r, grads, fwd = fwd_bwd(i)
+        fwd_launches += fwd
+        rays.append(r)
+    torch.cuda.synchronize()
+    wall_fb = time.perf_counter() - t0
+    peak[True] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    launches_fb = tk.kernel.launches - before
+    n_rays = int(sum(int(r) for r in rays))
+    check(all(bool(torch.isfinite(g).all()) for g in grads) and np.isfinite(float(loss)), "grad",
+          "bench_bwd point: non-finite loss or gradient")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        rays_f = [chunk(i)[1] for i in range(BWD_CHUNKS)]
+    torch.cuda.synchronize()
+    wall_f = time.perf_counter() - t0
+    n_rays_f = int(sum(int(r) for r in rays_f))
+    check(n_rays_f == n_rays, "grad", f"forward alone traced {n_rays_f} rays, with backward {n_rays}")
+    torch.cuda.reset_peak_memory_stats()
+    fwd_bwd(0, remat=False)
+    torch.cuda.synchronize()
+    peak[False] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    trips = BWD_CHUNKS * BWD_TRIPS
+    log("grad", f"bench_bwd point: {BWD_CHUNKS} chunks of {BWD_PATHS} paths at {BWD_SPP} spp "
+        f"(the middle row's pixels from x = 0), {BWD_LANES} lanes, {BWD_TRIPS} "
+        f"trips; forward+backward {wall_fb:.3f} s, {n_rays} rays traced (primary + shadow) = "
+        f"{n_rays / wall_fb / 1e6:.4f} M rays/s; forward alone (no_grad) {wall_f:.3f} s = "
+        f"{n_rays / wall_f / 1e6:.4f} M rays/s; forward+backward / forward "
+        f"{wall_fb / wall_f:.2f}x | {card}")
+    log("grad", f"bench_bwd point: traversal launches per trip {fwd_launches / trips:.2f} forward + "
+        f"{(launches_fb - fwd_launches) / trips:.2f} recompute; peak memory above the scene, one "
+        f"chunk: remat {peak[True]:.3f} GiB, no remat {peak[False]:.3f} GiB | {card}")
+    # A profiled chunk, CUDA activity only; the raw events are summed here, as
+    # the profiler's own per-event tables take minutes for a chunk's kernels.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fwd_bwd(0)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t1
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+    dev_ns = sum(by_name.values())
+    if dev_ns > 0:
+        trav_ns = sum(v for k, v in by_name.items() if "traverse_kernel" in k)
+        log("grad", f"profiled chunk: wall {wall1:.3f} s (profiler on), device busy "
+            f"{dev_ns / 1e9:.3f} s ({100 * dev_ns / 1e9 / wall1:.1f}% of wall), traversal "
+            f"{trav_ns / 1e9:.3f} s = {100 * trav_ns / dev_ns:.1f}% of device time | {card}")
+        for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log("grad", f"  device time {v / 1e6:10.1f} ms  {k[:90]}")
+    else:
+        log("grad", "device share: not measured (the profiler recorded no device time)")
+
+    # ---- 9c: the kernel's gradients against the plain traversal's ----
+    cam_s = dataclasses.replace(cam, width=CHECK_GRAD_WIDTH, height=CHECK_GRAD_WIDTH)
+    film_s = film_mod.FilmConfig.from_json(cam_s.width, cam_s.height, cam_s.film)
+    cfg_s = pt.PTConfig(max_bounces=CHECK_GRAD_BOUNCES)
+    lin_s = torch.arange(cam_s.width * cam_s.height, device=dev)
+    rays_s = cam_mod.generate_rays(cam_s, lin_s % cam_s.width, lin_s // cam_s.width,
+                                   torch.zeros_like(lin_s), 0, f32)
+
+    def small_image(p):
+        t = tables._replace(**p)
+        rad = pt.trace(t, meta, cfg_s, rays_s.origin, rays_s.direction, rays_s.pixel_index,
+                       rays_s.sample_index, intersect_fn=cluster_bvh.make_intersect_fn(t, meta, cbvh),
+                       differentiable=True, remat=False)
+        return film_mod.scan(film_mod.splat(film_s, rays_s.px, rad))
+
+    with torch.no_grad():
+        target_s = small_image(truth)
+
+    def small_grads():
+        p = {k: v.detach().clone().requires_grad_() for k, v in perturbed(truth).items()}
+        loss = torch.mean((small_image(p) - target_s) ** 2)
+        return loss.detach(), dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+
+    t0 = time.perf_counter()
+    k_loss, k_g = small_grads()
+    with mock.patch.object(tk, "traverse", tk.traverse_plain):
+        p_loss, p_g = small_grads()
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    k2_loss, k2_g = small_grads()
+    worst = {}
+    for name, other in (("plain", p_g), ("kernel again", k2_g)):
+        rel = {k: float((k_g[k] - other[k]).abs().max()) / max(float(k_g[k].abs().max()), 1e-30)
+               for k in k_g}
+        worst[name] = rel
+        log("grad", f"{cam_s.width}x{cam_s.height} 1 spp, max_bounces {CHECK_GRAD_BOUNCES}, no remat:"
+            f" kernel vs {name}: loss {float(k_loss):.9g} vs "
+            f"{float(p_loss if name == 'plain' else k2_loss):.9g}; largest |dg| / largest |g| per "
+            f"table " + ", ".join(f"{k[4:]} {v:.3g}" for k, v in rel.items()))
+        check(all(v <= 1e-4 for v in rel.values()), "grad",
+              f"kernel and {name} gradients differ by more than 1e-4 of the largest |g|")
+    check(torch.equal(k_loss, p_loss) and torch.equal(k_loss, k2_loss), "grad",
+          "the losses through the kernel and through the plain traversal differ")
+    log("grad", f"kernel vs plain through the gradient: losses identical; the plain route's "
+        f"check took {t_plain:.1f} s | {card}")
+    return train_launches
+
+
 def kernel_phase(scene, j, cbvh, card, parent, rng):
     """Phase 3: the traversal kernel against its plain version on five ray sets,
     then timed per set at the main path's launch shape. Returns the per-set
@@ -767,6 +1055,7 @@ def kernel_phase(scene, j, cbvh, card, parent, rng):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     # ---- 1. device ----
     import torch
 
@@ -910,6 +1199,12 @@ def main() -> int:
         knn_rows = knn_phase(scene, cam, card, rng, pm_dir, parent_knn_lib)
     golden_phase(card)
 
+    # ---- 9. the differentiable path ----
+    t9 = time.perf_counter()
+    train_launches = grad_phase(scene, cbvh, card)
+    log("done", f"phase 9 took {time.perf_counter() - t9:.1f} s, the whole run "
+        f"{time.perf_counter() - t_start:.1f} s | {card}")
+
     mean = lambda key: sum(r[key] for r in timing.values()) / len(timing)
     kernels = [{
         "name": "cluster_bvh_traverse",
@@ -917,6 +1212,7 @@ def main() -> int:
         "source": "mcrt_tpu_torch/csrc/traverse.cu",
         "replaces": "mcrt_tpu/ops/traverse_kernel.py:53",
         "launches": launches,   # the path tracer's main path (phase 4)
+        "train_launches": train_launches,   # phase 9a's train steps, forward and recompute
         "max_abs_err": max_err,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),

@@ -272,10 +272,13 @@ def sample_direct(
         alive & ~ix.mat.dirac_delta & (cos_light_theta > 0.0)
         & ((cos_theta_s > 0.0) | retry) & vis
     )
-    # Select BEFORE squaring: on occluded/parked lanes sh.t is float-max.
+    # Select BEFORE squaring: on occluded/parked lanes sh.t is float-max. The
+    # divisor too: where l_area * cos is 0, _safe's tiny squares to 0 in the
+    # backward pass, and 0 * inf turns the lane's zero cotangent into NaN.
     t_vis = torch.where(nee_ok, sh.t, torch.ones_like(sh.t))
+    light_den = torch.where(nee_ok, l_area * cos_light_theta, torch.ones_like(t_vis))
     light_pdf = torch.where(
-        nee_ok, t_vis * t_vis / bsdf._safe(l_area * cos_light_theta), torch.ones_like(t_vis)
+        nee_ok, t_vis * t_vis / bsdf._safe(light_den), torch.ones_like(t_vis)
     )
     wi_l = g.to_local(sdir, ix.tb_t, ix.tb_b, ix.sn)
     f_nee, pdf_nee = bsdf.eval_layered(
@@ -357,9 +360,12 @@ def bsdf_bounce(ix: Interaction, direction, ctx, eps, flux: bool) -> Bounce:
         event=event, flux=flux, wi_dirac=dirac_next,
     )
     valid = valid & (pdf_new > 0.0)
+    # Double where, as in sample_direct: an invalid lane divides by 1, so a
+    # zero pdf never reaches the division, forward or backward.
+    pdf_den = torch.where(valid, pdf_new, torch.ones_like(pdf_new))
     weight = torch.where(
         valid[:, None],
-        f_new * (torch.abs(wi_l_new[..., 2]) / bsdf._safe(pdf_new))[:, None],
+        f_new * (torch.abs(wi_l_new[..., 2]) / pdf_den)[:, None],
         torch.ones_like(f_new),
     )
     return Bounce(

@@ -6,9 +6,15 @@ source/integrator/integrator.cpp:31-129): a batch of rays advances one bounce
 per loop iteration; every per-ray decision (event selection, NEE visibility,
 RR) is a masked lane; two scene intersections per bounce (primary + shadow).
 
-The bounce loop is a Python `while` whose condition reads one flag from the
-device once per bounce (the JAX package's `lax.while_loop`); `trace_streamed`
-counts those host synchronisations.
+The forward bounce loop is a Python `while` whose condition reads one flag
+from the device once per bounce (the JAX package's `lax.while_loop`);
+`trace_streamed` counts those host synchronisations. The differentiable loops
+(`trace(differentiable=True)`, `trace_streamed(fixed_trips=N)`) run a fixed
+number of trips with no host sync (the JAX package's `lax.scan`), each trip
+rematerialised in the backward pass by `torch.utils.checkpoint` (its
+`jax.checkpoint`). Gradients flow through the continuous BSDF, pdf and
+throughput chain; the Sobol decisions are integer functions of the path's
+indices, and the traversal is detached (ops/cluster_bvh.make_intersect_fn).
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..camera import camera as cam_mod
 from ..ops import intersect as isect
@@ -63,7 +70,8 @@ class PathState(NamedTuple):
     ray_count: torch.Tensor         # scalar int64: rays traced (primary + shadow)
     path_id: torch.Tensor           # (R,) int32 local path index
     next_path: torch.Tensor         # scalar int64: next unassigned path (streamed)
-    out_rad: torch.Tensor           # (n_out + 1, 3) finished radiance, last row = dump (streamed)
+    out_rad: torch.Tensor           # finished radiance (streamed): (n_out + 1, 3), last row =
+                                    # dump, or (G, L, 3) per generation and lane when strided
     pixel_index: torch.Tensor       # (R,) int64 holding uint32
     sample_index: torch.Tensor      # (R,) int64 holding uint32
     origin: torch.Tensor            # (R,3)
@@ -85,9 +93,18 @@ class PathState(NamedTuple):
 
 
 class RegenCfg(NamedTuple):
-    """Path regeneration (persistent wavefront) in dynamic mode: a lane whose
-    path dies writes its radiance out and loads the globally next unassigned
-    path, so lanes stay busy instead of idling until the batch drains."""
+    """Path regeneration (persistent wavefront): a lane whose path dies writes
+    its radiance out and loads another path, so lanes stay busy instead of
+    idling until the batch drains. Two assignment modes, as in the JAX package:
+
+    strided=False (dynamic): a dead lane pulls the globally next unassigned
+    path, and its radiance is scatter-added into out_rad[path] (or its pixel's
+    row with pixel_sums). The forward render's mode.
+
+    strided=True (lane-strided): lane l owns paths l, l+L, l+2L, ...; path_id
+    holds the lane's generation g, and radiance lands in out_rad[g, l] by a
+    masked dense write, so no scatter runs, and out_rad.reshape(G*L, 3) is in
+    path order. The differentiable fixed-trip mode's default."""
     cam: object              # CameraDef
     consts: object           # camera.CameraConsts on the render device
     width: int
@@ -95,7 +112,10 @@ class RegenCfg(NamedTuple):
     start: int               # global path index of local path 0
     n_paths: int             # paths this call streams
     lanes: int
-    pixel_sums: bool         # accumulate per-pixel sums instead of per-path radiance
+    strided: bool
+    pixel_sums: bool         # accumulate per-pixel sums instead of per-path radiance (dynamic)
+    fixed: bool              # a fixed-trip run, which autograd may differentiate: the dynamic
+                             # scatter writes a new out_rad instead of the trip's input
 
 
 def make_bounce_step(
@@ -186,20 +206,36 @@ def make_bounce_step(
             # Lanes at the depth cap die here so their radiance is finalized.
             alive = alive & (bounce < cfg.max_bounces)
             died_now = st.alive & ~alive
-            # 1. finalize: add dead paths' radiance to their row (the path's, or
-            # its pixel's with pixel_sums); live lanes add zero to the dump row.
-            dump = out_rad.shape[0] - 1
-            tgt = torch.div(path_id, regen.spp, rounding_mode="floor") if regen.pixel_sums else path_id
-            slot = torch.where(died_now, tgt, torch.full_like(tgt, dump)).to(torch.int64)
-            # In place: the previous state is never read again.
-            out_rad.index_add_(
-                0, slot, torch.where(died_now[:, None], radiance, torch.zeros_like(radiance)))
-            # 2. reload: dead lanes pull the next unassigned paths in lane order.
-            died_i = died_now.to(torch.int64)
-            rank = torch.cumsum(died_i, 0) - died_i
-            new_local = next_path + rank
-            has_new = died_now & (new_local < regen.n_paths)
-            next_path = next_path + died_i.sum()
+            if regen.strided:
+                # 1. finalize: masked dense write into this lane's own row of
+                # its generation (path = g * L + lane).
+                out_rad = out_rad + torch.where(
+                    _generation_rows(out_rad, died_now, path_id), radiance, 0.0)
+                # 2. reload: the lane's own next stride.
+                next_id = path_id + 1
+                new_local = next_id.to(torch.int64) * regen.lanes + torch.arange(
+                    regen.lanes, dtype=torch.int64, device=path_id.device)
+                has_new = died_now & (new_local < regen.n_paths)
+            else:
+                # 1. finalize: add dead paths' radiance to their row (the path's,
+                # or its pixel's with pixel_sums); live lanes add zero to the dump row.
+                dump = out_rad.shape[0] - 1
+                tgt = torch.div(path_id, regen.spp, rounding_mode="floor") if regen.pixel_sums else path_id
+                slot = torch.where(died_now, tgt, torch.full_like(tgt, dump)).to(torch.int64)
+                add = torch.where(died_now[:, None], radiance, torch.zeros_like(radiance))
+                if regen.fixed:
+                    # Out of place: a checkpointed trip recomputes from its input.
+                    out_rad = out_rad.index_add(0, slot, add)
+                else:
+                    # In place: the previous state is never read again.
+                    out_rad.index_add_(0, slot, add)
+                # 2. reload: dead lanes pull the next unassigned paths in lane order.
+                died_i = died_now.to(torch.int64)
+                rank = torch.cumsum(died_i, 0) - died_i
+                new_local = next_path + rank
+                has_new = died_now & (new_local < regen.n_paths)
+                next_path = next_path + died_i.sum()
+                next_id = new_local.to(torch.int32)
             lin = regen.start + torch.clamp(new_local, max=regen.n_paths - 1)
             pix = torch.div(lin, regen.spp, rounding_mode="floor")
             fresh = cam_mod.generate_rays(
@@ -217,7 +253,7 @@ def make_bounce_step(
             bounce = torch.where(has_new, zi, bounce)
             pixel_index = torch.where(has_new, fresh.pixel_index, pixel_index)
             sample_index = torch.where(has_new, fresh.sample_index, sample_index)
-            path_id = torch.where(has_new, new_local.to(torch.int32), path_id)
+            path_id = torch.where(has_new, next_id, path_id)
             medium_ior = torch.where(has_new, scene_ior, medium_ior)
             new_refr_scale = torch.where(has_new, torch.ones_like(new_refr_scale), new_refr_scale)
             ray_dirac = ray_dirac & ~has_new
@@ -300,6 +336,32 @@ def _init_state(tables, cfg, origin, direction, pixel_index, sample_index, alive
     )
 
 
+def _generation_rows(out_rad, lanes_mask, path_id):
+    """(G, L, 1) bool: row g of lane l where lanes_mask[l] and the lane is on
+    generation g (path_id holds g in lane-strided mode)."""
+    gen = torch.arange(out_rad.shape[0], dtype=path_id.dtype, device=path_id.device)
+    return (lanes_mask[None, :] & (gen[:, None] == path_id[None, :]))[..., None]
+
+
+def _checkpointed(step):
+    """`step` under torch.utils.checkpoint: the backward pass keeps only each
+    trip's PathState and runs the trip again to rebuild its internals (the
+    traversal, the BSDF evaluations, NEE). Non-reentrant, so gradients also
+    reach the tensors `step` closes over (the packs built from the
+    parameters). The step draws nothing from torch's generators (Sobol is
+    integer hashing), so no RNG state is kept; reading the card's would sync."""
+    return lambda st: torch.utils.checkpoint.checkpoint(
+        step, st, use_reentrant=False, preserve_rng_state=False)
+
+
+def _run_trips(step, st, trips: int, remat: bool):
+    """`trips` steps with no host sync, each rematerialised when `remat`."""
+    body = _checkpointed(step) if remat else step
+    for _ in range(trips):
+        st = body(st)
+    return st
+
+
 def trace(
     tables: SceneTables,
     meta: SceneMeta,
@@ -310,9 +372,18 @@ def trace(
     sample_index,
     intersect_fn: Callable | None = None,
     return_stats: bool = False,
+    differentiable: bool = False,
+    remat: bool = True,
 ):
     """Trace a batch of camera rays to radiance. Returns (R,3) radiance
-    (and {"rays": count, "bounce_steps": host syncs} with return_stats)."""
+    (and {"rays": count, "bounce_steps": steps run} with return_stats).
+
+    The default loop stops when every lane died or the slowest reached
+    max_bounces, with one host sync per bounce. `differentiable=True` runs
+    exactly cfg.max_bounces steps and never syncs, so autograd can reverse it
+    (dead lanes are parked and carry their radiance unchanged); `remat` then
+    checkpoints every step, so the backward pass stores one PathState per
+    bounce and recomputes the rest."""
     if intersect_fn is None:
         intersect_fn = lambda o, d: isect.intersect_brute(tables, meta, o, d)
     step = make_bounce_step(tables, meta, cfg, intersect_fn)
@@ -322,14 +393,18 @@ def trace(
         tables, cfg, origin, direction, sobol.as_u32(pixel_index, dev),
         sobol.as_u32(sample_index, dev), torch.ones((R,), dtype=torch.bool, device=dev),
         torch.arange(R, dtype=torch.int32, device=dev),
-        torch.tensor(R, dtype=torch.int64, device=dev),
+        torch.full((), R, dtype=torch.int64, device=dev),
         torch.zeros((1, 3), dtype=origin.dtype, device=dev))
-    steps = 0
-    # One host sync per bounce: the loop ends when every lane died or the
-    # slowest lane reached max_bounces.
-    while bool(st.alive.any() & (st.bounce.min() < cfg.max_bounces)):
-        st = step(st)
-        steps += 1
+    if differentiable:
+        st = _run_trips(step, st, cfg.max_bounces, remat)
+        steps = cfg.max_bounces
+    else:
+        steps = 0
+        # One host sync per bounce: the loop ends when every lane died or the
+        # slowest lane reached max_bounces.
+        while bool(st.alive.any() & (st.bounce.min() < cfg.max_bounces)):
+            st = step(st)
+            steps += 1
     if return_stats:
         return st.radiance, {"rays": st.ray_count, "bounce_steps": steps}
     return st.radiance
@@ -347,26 +422,42 @@ def trace_streamed(
     intersect_fn: Callable | None = None,
     pixel_sums: bool = False,
     stats: dict | None = None,
+    fixed_trips: int | None = None,
+    remat: bool = True,
+    strided: bool | None = None,
 ):
     """Persistent-wavefront trace: `lanes` lanes stream `n_paths` camera paths
     (global indices [start, start+n_paths), pixel-major x sample-minor as in
     render()). A lane whose path terminates adds its radiance to the output
-    buffer and loads the next unassigned path. Runs until every path drained.
+    buffer and loads another path (see RegenCfg for the two modes).
+
+    fixed_trips: None (the forward render) runs until every path drained, one
+    host sync per bounce. An int runs exactly that many steps with no host
+    sync, which autograd can reverse: the differentiable wavefront, each trip
+    checkpointed when `remat`. Paths still in flight when the trips run out
+    add their partial radiance (truncation, as at max_bounces); paths never
+    started add nothing. strided: the assignment mode, by default lane-strided
+    exactly when fixed_trips is given; pixel_sums needs the dynamic mode.
 
     Returns (radiance, rays traced): radiance is (n_paths, 3) per path, or
     (n_paths // spp, 3) per-pixel sums with pixel_sums. If `stats` is a dict,
-    "bounce_steps" (= host syncs) is added to it."""
+    the steps run are added to its "bounce_steps" (host syncs of a draining
+    run; a fixed-trip run syncs never)."""
     dtype = tables.tri_v0.dtype
     dev = tables.tri_v0.device
     if intersect_fn is None:
         intersect_fn = lambda o, d: isect.intersect_brute(tables, meta, o, d)
-    if pixel_sums and n_paths % spp:
-        raise ValueError("pixel_sums needs an spp-aligned path count")
+    if strided is None:
+        strided = fixed_trips is not None
+    if pixel_sums and (strided or n_paths % spp):
+        raise ValueError("pixel_sums needs the dynamic mode and an spp-aligned path count")
     L = lanes
+    G = -(-n_paths // L)
     n_out = (n_paths // spp) if pixel_sums else n_paths
     consts = cam_mod.camera_consts(cam, dtype, dev)
     regen = RegenCfg(cam=cam, consts=consts, width=cam.width, spp=spp, start=int(start),
-                     n_paths=n_paths, lanes=L, pixel_sums=pixel_sums)
+                     n_paths=n_paths, lanes=L, strided=strided, pixel_sums=pixel_sums,
+                     fixed=fixed_trips is not None)
     step = make_bounce_step(tables, meta, cfg, intersect_fn, regen=regen)
 
     local0 = torch.arange(L, dtype=torch.int64, device=dev)
@@ -379,14 +470,29 @@ def trace_streamed(
     )
     st = _init_state(
         tables, cfg, torch.where(live0[:, None], first.origin, PARK_DISTANCE), first.direction,
-        first.pixel_index, first.sample_index, live0, local0.to(torch.int32),
-        torch.tensor(min(L, n_paths), dtype=torch.int64, device=dev),
-        torch.zeros((n_out + 1, 3), dtype=dtype, device=dev))
-    steps = 0
-    while bool(st.alive.any()):   # one host sync per bounce
-        st = step(st)
-        steps += 1
+        first.pixel_index, first.sample_index, live0,
+        torch.zeros_like(local0, dtype=torch.int32) if strided else local0.to(torch.int32),
+        torch.full((), min(L, n_paths), dtype=torch.int64, device=dev),
+        torch.zeros((G, L, 3) if strided else (n_out + 1, 3), dtype=dtype, device=dev))
+    if fixed_trips is not None:
+        st = _run_trips(step, st, fixed_trips, remat)
+        steps = fixed_trips
+    else:
+        steps = 0
+        while bool(st.alive.any()):   # one host sync per bounce
+            st = step(st)
+            steps += 1
     if stats is not None:
         stats["bounce_steps"] = stats.get("bounce_steps", 0) + steps
-    # A drained loop has no alive lanes, so nothing is left to flush.
-    return st.out_rad[:n_out], st.ray_count
+    # Flush the lanes still alive (none after a drained loop).
+    if strided:
+        out = st.out_rad + torch.where(
+            _generation_rows(st.out_rad, st.alive, st.path_id), st.radiance, 0.0)
+        return out.reshape(G * L, 3)[:n_paths], st.ray_count
+    if fixed_trips is None:
+        return st.out_rad[:n_out], st.ray_count
+    tgt = torch.div(st.path_id, spp, rounding_mode="floor") if pixel_sums else st.path_id
+    slot = torch.where(st.alive, tgt, torch.full_like(tgt, n_out)).to(torch.int64)
+    out = st.out_rad.index_add(
+        0, slot, torch.where(st.alive[:, None], st.radiance, torch.zeros_like(st.radiance)))
+    return out[:n_out], st.ray_count

@@ -116,7 +116,10 @@ def fresnel_dielectric(n1, n2, cos_theta):
     ratio = n2 / _one_if_zero(n1)
     g2 = ratio * ratio + cos_theta * cos_theta - 1.0
     tir = g2 < 0.0
-    gr = torch.sqrt(torch.where(tir, torch.ones_like(g2), torch.clamp(g2, min=0.0)))
+    # sqrt of a positive value only: sqrt's derivative at 0 is inf, and inf
+    # times a lane's zero cotangent is NaN in the backward pass.
+    pos = g2 > 0.0
+    gr = torch.where(pos, torch.sqrt(torch.where(pos, g2, torch.ones_like(g2))), torch.zeros_like(g2))
     g_p_c = gr + cos_theta
     g_m_c = gr - cos_theta
     term1 = (g_m_c / _one_if_zero(g_p_c)) ** 2

@@ -12,7 +12,10 @@ import mcrt_tpu_torch as mt
 from mcrt_tpu_torch import cli, convert
 from mcrt_tpu_torch.accel import knn_kernel as kk
 from mcrt_tpu_torch.accel import photon_grid as pg
+from mcrt_tpu_torch.camera.film import FilmConfig
+from mcrt_tpu_torch.integrator.path_tracer import PTConfig
 from mcrt_tpu_torch.ops import traverse_kernel as tk
+from mcrt_tpu_torch.parallel import sharding
 from mcrt_tpu_torch.scene.synthetic import height_field_scene
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -43,7 +46,7 @@ def test_scan_covers_the_package():
     for must in ("render.py", "scene/loader.py", "ops/cluster_bvh.py", "ops/traverse_kernel.py",
                  "integrator/path_tracer.py", "sampling/sobol.py", "convert.py",
                  "accel/photon_grid.py", "accel/knn_kernel.py", "integrator/photon_mapper.py",
-                 "cli.py", "__main__.py"):
+                 "cli.py", "__main__.py", "parallel/sharding.py"):
         assert must in names
 
 
@@ -63,7 +66,7 @@ def small_scene():
 @pytest.mark.parametrize("entry", ["render", "photon_render", "render_to_file", "cli", "tables",
                                    "cluster_bvh", "tables_from_numpy", "cluster_bvh_from_numpy",
                                    "photon_grid", "photon_grid_from_numpy", "load_photon_grid",
-                                   "knn"])
+                                   "knn", "train_step"])
 def test_entry_points_refuse_cpu_without_request(no_cuda, small_scene, entry, tmp_path):
     s = small_scene
     z3 = np.zeros((4, 3))
@@ -83,6 +86,8 @@ def test_entry_points_refuse_cpu_without_request(no_cuda, small_scene, entry, tm
         "load_photon_grid": lambda: pg.load_photon_grid(_saved_grid(tmp_path, grid())),
         "knn": lambda: kk.knn(grid(), grid().arrays, torch.zeros((2, 3), device="meta"), 4),
         "tables": lambda: s.tables(np.float32),
+        "train_step": lambda: sharding.train_step(
+            s.meta(), PTConfig(), s.cameras[0], FilmConfig(8, 8), np.float32, with_bvh=True),
         "cluster_bvh": lambda: s.build_cluster_bvh(np.float32),
         "tables_from_numpy": lambda: convert.tables_from_numpy(s.table_arrays()),
         "cluster_bvh_from_numpy": lambda: convert.cluster_bvh_from_numpy(

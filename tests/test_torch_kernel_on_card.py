@@ -5,7 +5,7 @@ Imports no JAX, so it also runs on a machine that has a card and no JAX:
     python3 -m pytest --noconftest -q tests/test_torch_kernel_on_card.py
 
 (`--noconftest`: tests/conftest.py sets up JAX for the JAX package's tests).
-Without a card the kernel test skips: a CUDA kernel has no CPU mode. The ray
+Without a card the kernel tests skip: a CUDA kernel has no CPU mode. The ray
 sets here are also used by tests/test_torch_traverse.py. The plain version's
 fused multiply-add, which makes it the kernel's bit-for-bit twin, is tested on
 the CPU."""
@@ -121,6 +121,53 @@ def test_kernel_matches_plain_on_card(mesh):
             assert (k[1] == -1).all() and int(st[:, 1].max()) == 0
         if mesh == "soup":
             assert int(st[:, 0].min()) > tk.heap_shared() and bool((st[:, 1] < st[:, 0]).all())
+
+
+@pytest.mark.cuda
+def test_kernel_route_gradients_match_plain_on_card():
+    """The train step through the kernel and through the plain traversal on the
+    card (the height field at n=32, 16x16, one sample per pixel, max_bounces 6,
+    float32, a random target): identical losses, and each of the four tables'
+    gradients within 1e-4 of its largest |g|, as are two kernel runs; the bar
+    is not bitwise because the backward passes of the row gathers are atomic
+    scatter-adds. Each kernel step launches the kernel twice per bounce
+    forward and twice more when the backward pass recomputes the bounce."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode); chip_smoke.py runs it")
+    from unittest import mock
+
+    import mcrt_tpu_torch as mt
+    from mcrt_tpu_torch.camera import film as film_mod
+    from mcrt_tpu_torch.integrator import path_tracer as pt
+    from mcrt_tpu_torch.parallel import sharding
+    from mcrt_tpu_torch.scene.synthetic import height_field_scene
+
+    width, bounces = 16, 6
+    scene = mt.Scene(height_field_scene(32, width, 1))
+    cam = scene.cameras[0]
+    tables = scene.tables(np.float32, "cuda")
+    cbvh = scene.build_cluster_bvh(np.float32, "cuda")
+    step = sharding.train_step(scene.meta(), pt.PTConfig(max_bounces=bounces), cam,
+                               film_mod.FilmConfig.from_json(width, width, cam.film),
+                               torch.float32, with_bvh=True, device="cuda")
+    params = {k: getattr(tables, k) for k in sharding.DEFAULT_TRAIN_PARAMS}
+    rng = np.random.default_rng(6)
+    lin = torch.arange(width * width, device="cuda")
+    args = (params, lin % width, lin // width, torch.zeros_like(lin),
+            torch.as_tensor(rng.random((width, width, 3)) * 0.5, dtype=torch.float32).cuda())
+    before = tk.kernel.launches
+    loss, grads = step(tables, cbvh, *args)
+    torch.cuda.synchronize()
+    assert tk.kernel.launches - before == 4 * bounces
+    with mock.patch.object(tk, "traverse", tk.traverse_plain):
+        plain_loss, plain = step(tables, cbvh, *args)
+    again_loss, again = step(tables, cbvh, *args)
+    assert torch.equal(loss, plain_loss) and torch.equal(loss, again_loss)
+    for name, g in grads.items():
+        top = float(g.abs().max())
+        assert torch.isfinite(g).all() and top > 0.0, name
+        for other in (plain[name], again[name]):
+            assert float((g - other).abs().max()) <= 1e-4 * top, name
 
 
 def test_plain_fma_rounds_once():
