@@ -57,13 +57,16 @@ Phases (each prints its own lines; any failed check exits non-zero):
                  loss, the forward and backward times (CUDA events), the traversal
                  launches of the forward and of the backward's recompute, and the
                  peak memory; the loss and gradients must be finite, the reflectance
-                 gradient nonzero, and the loss must fall
+                 gradient nonzero, and the loss must fall; three of the first step's
+                 traversal launches (262,144 rays, 1024 blocks) held to the plain
+                 version, bit for bit as in phase 3
               b. bench.py's bench_bwd point: trace_streamed(fixed_trips=64) over 2^17
                  paths a chunk at 1024 spp through 8192 lanes, loss mean(pixel
                  mean^2) over the four tables, 4 chunks: rays traced per second
                  forward+backward and forward alone (no_grad), the peak memory with
                  and without remat, the traversal launches per trip, and a profiled
-                 chunk's device-busy share and the traversal's share of device time
+                 chunk's device-busy share and the traversal's share of device time;
+                 three of that chunk's launches (8192 rays) held to the plain version
               c. the 64x64 camera, 1 spp, max_bounces 8, remat off: the loss and the
                  four gradient tables through the kernel, through the plain traversal
                  (patched in as in phase 5) and through the kernel again; losses
@@ -732,6 +735,44 @@ class GradSplit:
         return self.real(*args, **kwargs)
 
 
+class LaunchRecorder:
+    """Wraps traverse_kernel.traverse: keeps the rays and the kernel's outputs
+    of the calls numbered in `at` (0 = the first call), so that those launches
+    can be held against the plain version at the size the path gave them.
+    Keeps references only: nothing syncs the host."""
+
+    def __init__(self, tk, at):
+        self.real, self.at, self.calls, self.seen = tk.traverse, set(at), 0, {}
+
+    def __call__(self, cbvh, origin, direction):
+        out = self.real(cbvh, origin, direction)
+        if self.calls in self.at:
+            self.seen[self.calls] = (origin, direction, out)
+        self.calls += 1
+        return out
+
+
+def held_to_plain(tk, cbvh, recorder, what, card):
+    """Each recorded launch against traverse_plain on its rays: t, id, u, v
+    and the per-block stats must be bit-identical, as in phase 3, and every
+    launch must hit something."""
+    import torch
+
+    check(len(recorder.seen) == len(recorder.at), "grad",
+          f"{what}: recorded {len(recorder.seen)} of the launches {sorted(recorder.at)}")
+    for i, (o, d, got) in sorted(recorder.seen.items()):
+        check(bool((got[1] >= 0).any()), "grad", f"{what}, launch {i}: no ray hit a triangle")
+        t0 = time.perf_counter()
+        want = tk.traverse_plain(cbvh, o, d)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(got, want)]
+        st = got[4]
+        log("grad", f"{what}, launch {i}: {o.shape[0]} rays, {st.shape[0]} blocks, hits "
+            f"{int((want[1] >= 0).sum())}, rounds max {int(st[:, 1].max())}; kernel vs plain "
+            f"bit-identical t, id, u, v, stats: {same} (plain {time.perf_counter() - t0:.1f} s) | {card}")
+        check(all(same), "grad", f"{what}, launch {i}: kernel and plain version differ")
+
+
 def grad_phase(scene, cbvh, card):
     """Phase 9: the differentiable path. Returns the traversal's launches over
     9a's train steps (forward and recompute)."""
@@ -772,6 +813,9 @@ def grad_phase(scene, cbvh, card):
     step = sharding.train_step(meta, cfg, cam, film_cfg, f32, with_bvh=True, device=dev)
     params = perturbed(truth)
     split = GradSplit(tk)
+    # Step 0's launches held to the plain version afterwards: trip 0's rays
+    # and shadow rays, and trip 8's rays, dead lanes parked among them.
+    train_rec = LaunchRecorder(tk, at=(0, 1, 16))
     losses, train_launches = [], 0
     for i in range(SGD_STEPS):
         torch.cuda.synchronize()
@@ -782,7 +826,8 @@ def grad_phase(scene, cbvh, card):
         a.record()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            with mock.patch.object(torch.autograd, "grad", split):
+            with mock.patch.object(torch.autograd, "grad", split), \
+                    mock.patch.object(tk, "traverse", train_rec if i == 0 else tk.traverse):
                 loss, grads = step(tables, cbvh, params, px, py, si, target)
         finally:
             torch.cuda.set_sync_debug_mode("default")
@@ -809,6 +854,8 @@ def grad_phase(scene, cbvh, card):
     log("grad", f"{SGD_STEPS} SGD steps of size {SGD_LR}: loss {losses[0]:.9g} -> {losses[-1]:.9g} "
         f"(no host sync inside a step: sync debug mode 'error') | {card}")
     check(losses[-1] < losses[0], "grad", "the loss did not fall")
+    held_to_plain(tk, cbvh, train_rec, "train step 0", card)
+    del train_rec
 
     # ---- 9b: forward+backward at bench.py's bench_bwd point ----
     leaves = {k: v.detach().clone().requires_grad_() for k, v in perturbed(truth).items()}
@@ -872,8 +919,12 @@ def grad_phase(scene, cbvh, card):
         f"chunk: remat {peak[True]:.3f} GiB, no remat {peak[False]:.3f} GiB | {card}")
     # A profiled chunk, CUDA activity only; the raw events are summed here, as
     # the profiler's own per-event tables take minutes for a chunk's kernels.
+    # Its launches of trips 8 and 16 are held to the plain version afterwards
+    # (trip 0's rays, at the row's left end, see only sky).
+    bwd_rec = LaunchRecorder(tk, at=(16, 17, 32))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            mock.patch.object(tk, "traverse", bwd_rec):
         t1 = time.perf_counter()
         fwd_bwd(0)
         torch.cuda.synchronize()
@@ -892,6 +943,8 @@ def grad_phase(scene, cbvh, card):
             log("grad", f"  device time {v / 1e6:10.1f} ms  {k[:90]}")
     else:
         log("grad", "device share: not measured (the profiler recorded no device time)")
+    held_to_plain(tk, cbvh, bwd_rec, "bench_bwd chunk", card)
+    del bwd_rec
 
     # ---- 9c: the kernel's gradients against the plain traversal's ----
     cam_s = dataclasses.replace(cam, width=CHECK_GRAD_WIDTH, height=CHECK_GRAD_WIDTH)

@@ -117,9 +117,11 @@ def fresnel_dielectric(n1, n2, cos_theta):
     g2 = ratio * ratio + cos_theta * cos_theta - 1.0
     tir = g2 < 0.0
     # sqrt of a positive value only: sqrt's derivative at 0 is inf, and inf
-    # times a lane's zero cotangent is NaN in the backward pass.
+    # times a lane's zero cotangent is NaN in the backward pass. TIR lanes
+    # take sqrt(1) = 1 as in the JAX package (their result is overwritten).
     pos = g2 > 0.0
-    gr = torch.where(pos, torch.sqrt(torch.where(pos, g2, torch.ones_like(g2))), torch.zeros_like(g2))
+    gr = torch.where(pos | tir, torch.sqrt(torch.where(pos, g2, torch.ones_like(g2))),
+                     torch.zeros_like(g2))
     g_p_c = gr + cos_theta
     g_m_c = gr - cos_theta
     term1 = (g_m_c / _one_if_zero(g_p_c)) ** 2
