@@ -66,11 +66,33 @@ Phases (each prints its own lines; any failed check exits non-zero):
                  forward+backward and forward alone (no_grad), the peak memory with
                  and without remat, the traversal launches per trip, and a profiled
                  chunk's device-busy share and the traversal's share of device time;
+                 the material gathers' backward (indexing_backward kernels): its share
+                 of that chunk's device time, and of the same chunk profiled again
+                 with the gathers' cotangents summed in float32 by plain indexing;
                  three of that chunk's launches (8192 rays) held to the plain version
               c. the 64x64 camera, 1 spp, max_bounces 8, remat off: the loss and the
                  four gradient tables through the kernel, through the plain traversal
                  (patched in as in phase 5) and through the kernel again; losses
                  identical, gradients within 1e-4 of each table's largest |g|
+  10. multi   the sharded steps of parallel/ on torch.distributed, on the same scene
+              at 512x512, 1 spp, max_bounces 64, each with the traversal's launch count
+              set to 0 before it and read after (it must be > 0):
+              a. a world of one over NCCL in this process: sharded_train_step(with_bvh=True)
+                 at 9a's first step's inputs, under CUDA's sync debug mode set to error,
+                 held to that step (loss rtol 1e-5, gradients within 1e-4 of each table's
+                 largest |g|); then train_step and that sharded step timed in turns
+                 (train, sharded, sharded, train); sharded_render_step and
+                 render_distributed, held to render(sqrtspp=1) with
+                 tests/test_distributed.py's bars (rtol 2e-4, atol 2e-5); walls,
+                 launches and peak memory; two launches of render_distributed's first
+                 chunk (131,072 rays, 512 blocks) held to the plain version
+              b. two gloo ranks sharing the card, one process each (this script with
+                 the arguments `rank R W PORT DIR`), each building the scene anew:
+                 render_distributed and the sharded train step, held to 10a's with the
+                 same bars; both ranks hold the same results and launch the kernel
+              c. render() at 64x64, 1 spp, max_bounces 8, with RenderConfig.profile_dir
+                 set: one trace file, which names traverse_kernel, and the image of a
+                 render without it
 
 The line before the last names the card and its power limit; the line before
 that is the JSON kernel table; the last line is the JSON result. Imports no JAX
@@ -131,6 +153,17 @@ BWD_TRIPS = 64
 BWD_CHUNKS = 4
 CHECK_GRAD_WIDTH = 64
 CHECK_GRAD_BOUNCES = 8
+# Phase 10, the sharded steps on torch.distributed, on the same scene at 512x512,
+# 1 spp, 64 bounces: 10a a world of one over NCCL in this process, 10b
+# MULTI_RANKS gloo ranks sharing the one card (NCCL takes one rank per card),
+# each a process; 10c a profiled render at PROFILE_WIDTH^2. Images are held to
+# render() with tests/test_distributed.py's bars.
+MULTI_RANKS = 2
+MULTI_TIMEOUT_S = 300.0
+PROFILE_WIDTH = 64
+PROFILE_BOUNCES = 8     # keeps the trace's CPU events (every op of every bounce) small
+IMG_RTOL = 2e-4
+IMG_ATOL = 2e-5
 ROOT = pathlib.Path(__file__).resolve().parent
 # The parent commit's traverse.cu, when one is handed in beside the checkout (it
 # is not part of the repo): phase 3 then times it in turns with this tree's
@@ -736,10 +769,10 @@ class GradSplit:
 
 
 class LaunchRecorder:
-    """Wraps traverse_kernel.traverse: keeps the rays and the kernel's outputs
-    of the calls numbered in `at` (0 = the first call), so that those launches
-    can be held against the plain version at the size the path gave them.
-    Keeps references only: nothing syncs the host."""
+    """Wraps traverse_kernel.traverse: keeps the BVH, the rays and the
+    kernel's outputs of the calls numbered in `at` (0 = the first call), so
+    that those launches can be held against the plain version at the size the
+    path gave them. Keeps references only: nothing syncs the host."""
 
     def __init__(self, tk, at):
         self.real, self.at, self.calls, self.seen = tk.traverse, set(at), 0, {}
@@ -747,43 +780,57 @@ class LaunchRecorder:
     def __call__(self, cbvh, origin, direction):
         out = self.real(cbvh, origin, direction)
         if self.calls in self.at:
-            self.seen[self.calls] = (origin, direction, out)
+            self.seen[self.calls] = (cbvh, origin, direction, out)
         self.calls += 1
         return out
 
 
-def held_to_plain(tk, cbvh, recorder, what, card):
-    """Each recorded launch against traverse_plain on its rays: t, id, u, v
-    and the per-block stats must be bit-identical, as in phase 3, and every
-    launch must hit something."""
+def held_to_plain(tk, recorder, what, card, phase="grad"):
+    """Each recorded launch against traverse_plain on its BVH and rays: t, id,
+    u, v and the per-block stats must be bit-identical, as in phase 3, and
+    every launch must hit something."""
     import torch
 
-    check(len(recorder.seen) == len(recorder.at), "grad",
+    check(len(recorder.seen) == len(recorder.at), phase,
           f"{what}: recorded {len(recorder.seen)} of the launches {sorted(recorder.at)}")
-    for i, (o, d, got) in sorted(recorder.seen.items()):
-        check(bool((got[1] >= 0).any()), "grad", f"{what}, launch {i}: no ray hit a triangle")
+    for i, (cbvh, o, d, got) in sorted(recorder.seen.items()):
+        check(bool((got[1] >= 0).any()), phase, f"{what}, launch {i}: no ray hit a triangle")
         t0 = time.perf_counter()
         want = tk.traverse_plain(cbvh, o, d)
         torch.cuda.synchronize()
         same = [torch.equal(a, b) for a, b in zip(got, want)]
         st = got[4]
-        log("grad", f"{what}, launch {i}: {o.shape[0]} rays, {st.shape[0]} blocks, hits "
+        log(phase, f"{what}, launch {i}: {o.shape[0]} rays, {st.shape[0]} blocks, hits "
             f"{int((want[1] >= 0).sum())}, rounds max {int(st[:, 1].max())}; kernel vs plain "
             f"bit-identical t, id, u, v, stats: {same} (plain {time.perf_counter() - t0:.1f} s) | {card}")
-        check(all(same), "grad", f"{what}, launch {i}: kernel and plain version differ")
+        check(all(same), phase, f"{what}, launch {i}: kernel and plain version differ")
+
+
+def device_ns_by_name(prof):
+    """{kernel name: device ns} of a CUDA-only profile, summed from the raw
+    events: the profiler's own per-event tables take minutes for a chunk's
+    kernels."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+    return by_name
 
 
 def grad_phase(scene, cbvh, card):
     """Phase 9: the differentiable path. Returns the traversal's launches over
-    9a's train steps (forward and recompute)."""
+    9a's train steps (forward and recompute), and 9a's first step: its
+    inputs (tables, params, px, py, si, target) and its loss and gradients."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mcrt_tpu_torch.camera import camera as cam_mod
     from mcrt_tpu_torch.camera import film as film_mod
     from mcrt_tpu_torch.integrator import path_tracer as pt
+    from mcrt_tpu_torch.materials import bsdf
     from mcrt_tpu_torch.ops import cluster_bvh
     from mcrt_tpu_torch.ops import traverse_kernel as tk
     from mcrt_tpu_torch.parallel import sharding
@@ -812,6 +859,7 @@ def grad_phase(scene, cbvh, card):
     check(bool(torch.isfinite(target).all()) and float(target.mean()) > 0.0, "grad", "bad target")
     step = sharding.train_step(meta, cfg, cam, film_cfg, f32, with_bvh=True, device=dev)
     params = perturbed(truth)
+    step0 = {"tables": tables, "params": params, "px": px, "py": py, "si": si, "target": target}
     split = GradSplit(tk)
     # Step 0's launches held to the plain version afterwards: trip 0's rays
     # and shadow rays, and trip 8's rays, dead lanes parked among them.
@@ -850,11 +898,13 @@ def grad_phase(scene, cbvh, card):
               f"step {i}: expected {2 * GRAD_BOUNCES} traversal launches forward and as many "
               f"in the recompute, got {fwd_l} and {bwd_l}")
         losses.append(loss_v)
+        if i == 0:
+            step0.update(loss=loss_v, grads=grads)
         params = sgd_update(params, grads, truth)
     log("grad", f"{SGD_STEPS} SGD steps of size {SGD_LR}: loss {losses[0]:.9g} -> {losses[-1]:.9g} "
         f"(no host sync inside a step: sync debug mode 'error') | {card}")
     check(losses[-1] < losses[0], "grad", "the loss did not fall")
-    held_to_plain(tk, cbvh, train_rec, "train step 0", card)
+    held_to_plain(tk, train_rec, "train step 0", card)
     del train_rec
 
     # ---- 9b: forward+backward at bench.py's bench_bwd point ----
@@ -917,9 +967,7 @@ def grad_phase(scene, cbvh, card):
     log("grad", f"bench_bwd point: traversal launches per trip {fwd_launches / trips:.2f} forward + "
         f"{(launches_fb - fwd_launches) / trips:.2f} recompute; peak memory above the scene, one "
         f"chunk: remat {peak[True]:.3f} GiB, no remat {peak[False]:.3f} GiB | {card}")
-    # A profiled chunk, CUDA activity only; the raw events are summed here, as
-    # the profiler's own per-event tables take minutes for a chunk's kernels.
-    # Its launches of trips 8 and 16 are held to the plain version afterwards
+    # A profiled chunk, CUDA activity only. Its launches of trips 8 and 16 are held to the plain version afterwards
     # (trip 0's rays, at the row's left end, see only sky).
     bwd_rec = LaunchRecorder(tk, at=(16, 17, 32))
     torch.cuda.synchronize()
@@ -929,10 +977,7 @@ def grad_phase(scene, cbvh, card):
         fwd_bwd(0)
         torch.cuda.synchronize()
         wall1 = time.perf_counter() - t1
-    by_name = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+    by_name = device_ns_by_name(prof)
     dev_ns = sum(by_name.values())
     if dev_ns > 0:
         trav_ns = sum(v for k, v in by_name.items() if "traverse_kernel" in k)
@@ -941,9 +986,25 @@ def grad_phase(scene, cbvh, card):
             f"{trav_ns / 1e9:.3f} s = {100 * trav_ns / dev_ns:.1f}% of device time | {card}")
         for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log("grad", f"  device time {v / 1e6:10.1f} ms  {k[:90]}")
+        # The material gathers' backward sums each row's cotangents in float64
+        # (bsdf._GatherRows); the same chunk again through plain indexing, whose
+        # backward sums them in float32, gives the cost of that in this run.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof32, \
+                mock.patch.object(bsdf._GatherRows, "apply", lambda pack, m: pack[m]):
+            t1 = time.perf_counter()
+            fwd_bwd(0)
+            torch.cuda.synchronize()
+            wall32 = time.perf_counter() - t1
+        for label, names, wall in (("float64 (_GatherRows)", by_name, wall1),
+                                   ("float32 (plain indexing)", device_ns_by_name(prof32), wall32)):
+            total = sum(names.values())
+            gb = {k: v for k, v in names.items() if "indexing_backward" in k}
+            log("grad", f"profiled chunk, gathers' backward summed in {label}: wall {wall:.3f} s, "
+                f"device {total / 1e9:.4f} s, of which {len(gb)} indexing_backward kernels "
+                f"{sum(gb.values()) / 1e6:.2f} ms = {100 * sum(gb.values()) / max(total, 1):.2f}% | {card}")
     else:
         log("grad", "device share: not measured (the profiler recorded no device time)")
-    held_to_plain(tk, cbvh, bwd_rec, "bench_bwd chunk", card)
+    held_to_plain(tk, bwd_rec, "bench_bwd chunk", card)
     del bwd_rec
 
     # ---- 9c: the kernel's gradients against the plain traversal's ----
@@ -991,7 +1052,268 @@ def grad_phase(scene, cbvh, card):
           "the losses through the kernel and through the plain traversal differ")
     log("grad", f"kernel vs plain through the gradient: losses identical; the plain route's "
         f"check took {t_plain:.1f} s | {card}")
-    return train_launches
+    return train_launches, step0
+
+
+def run_counted(tk, fn, sync_debug=False):
+    """fn() with the traversal's launch count set to 0 just before and read just
+    after; returns (result, wall s, launches, peak memory GiB). With
+    `sync_debug`, fn runs under CUDA's sync debug mode set to error."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.kernel.launches = 0
+    t0 = time.perf_counter()
+    if sync_debug:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, tk.kernel.launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def grads_apart(got, want) -> dict:
+    """Per table, the largest |got - want| over the largest |want|."""
+    import numpy as np
+
+    a = lambda x: x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+    return {k: float(np.abs(a(got[k]) - a(want[k])).max()) / max(float(np.abs(a(want[k])).max()), 1e-30)
+            for k in want}
+
+
+def images_apart(a, b):
+    """(elements outside rtol IMG_RTOL, atol IMG_ATOL of b, largest |a - b|)."""
+    import numpy as np
+
+    d = np.abs(a - b)
+    return int((d > IMG_ATOL + IMG_RTOL * np.abs(b)).sum()), float(d.max())
+
+
+def rank_main(rank: int, world: int, port: int, work: pathlib.Path) -> int:
+    """One rank of phase 10b: a gloo process group of `world` ranks that all
+    run on cuda:0 (NCCL takes one rank per card); the height field built anew,
+    then render_distributed at 1 spp and the sharded train step at 9a's first
+    step's inputs. work/inputs.npz holds those, the grid's n, the image width
+    and max_bounces; the results go to work/rank<rank>.npz."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import mcrt_tpu_torch as mt
+    from mcrt_tpu_torch.camera import film as film_mod
+    from mcrt_tpu_torch.integrator import path_tracer as pt
+    from mcrt_tpu_torch.ops import traverse_kernel as tk
+    from mcrt_tpu_torch.parallel import distributed, sharding
+    from mcrt_tpu_torch.scene.synthetic import height_field_scene
+
+    dev = distributed.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                                 timeout_s=MULTI_TIMEOUT_S)
+    try:
+        mesh = distributed.global_mesh()
+        tk.build()
+        z = np.load(work / "inputs.npz")
+        bounces = int(z["bounces"])
+        t0 = time.perf_counter()
+        scene = mt.Scene(height_field_scene(int(z["grid_n"]), int(z["width"]), 1))
+        cbvh = scene.build_cluster_bvh(np.float32, dev)
+        tables = scene.tables(np.float32, dev)
+        torch.cuda.synchronize()
+        t_scene = time.perf_counter() - t0
+        params = {k: torch.as_tensor(z[k], device=dev) for k in sharding.DEFAULT_TRAIN_PARAMS}
+        target = torch.as_tensor(z["target"], device=dev)
+        cam = scene.cameras[0]
+        lin = torch.arange(cam.width * cam.height, device=dev)
+        px, py, si = lin % cam.width, lin // cam.width, torch.zeros_like(lin)
+        img, wall_r, launches_r, _ = run_counted(tk, lambda: distributed.render_distributed(
+            scene, 0, mt.RenderConfig(max_bounces=bounces, sqrtspp=1)))
+        step = sharding.sharded_train_step(
+            scene.meta(), pt.PTConfig(max_bounces=bounces), cam,
+            film_mod.FilmConfig.from_json(cam.width, cam.height, cam.film), mesh, torch.float32,
+            with_bvh=True, device=dev)
+        (loss, grads), wall_t, launches_t, peak = run_counted(
+            tk, lambda: step(tables, cbvh, params, px, py, si, target))
+        np.savez(work / f"rank{rank}.npz", img=img, loss=float(loss),
+                 launches=np.array([launches_r, launches_t]),
+                 **{k: g.cpu().numpy() for k, g in grads.items()})
+        log("multi", f"10b rank {rank} of {world} ({dist.get_backend()}, {dev}): scene and BVH "
+            f"{t_scene:.2f} s; render_distributed {wall_r:.3f} s, traversal launches "
+            f"{launches_r}; sharded train step {wall_t:.3f} s, loss {float(loss):.9g}, "
+            f"traversal launches {launches_t}, peak memory {peak:.3f} GiB")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def multi_phase(scene, cbvh, card, step0):
+    """Phase 10: the sharded steps on torch.distributed. Returns the traversal's
+    launches in 10a's sharded train step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import mcrt_tpu_torch as mt
+    from mcrt_tpu_torch.camera import film as film_mod
+    from mcrt_tpu_torch.integrator import path_tracer as pt
+    from mcrt_tpu_torch.ops import traverse_kernel as tk
+    from mcrt_tpu_torch.parallel import distributed, sharding
+
+    dev = cbvh.rec.device
+    cam = scene.cameras[0]
+    meta = scene.meta()
+    film_cfg = film_mod.FilmConfig.from_json(cam.width, cam.height, cam.film)
+    cfg = pt.PTConfig(max_bounces=GRAD_BOUNCES)
+    tables, params, target = step0["tables"], step0["params"], step0["target"]
+    rays = (step0["px"], step0["py"], step0["si"])
+    cfg1 = mt.RenderConfig(max_bounces=GRAD_BOUNCES, sqrtspp=1)
+
+    # ---- 10a: a world of one over NCCL, in this process ----
+    rank_dev = distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0,
+                                      timeout_s=MULTI_TIMEOUT_S)
+    try:
+        mesh = distributed.global_mesh()
+        check(dist.get_backend() == "nccl" and mesh.size == 1 and rank_dev == dev, "multi",
+              f"expected a world of one over NCCL on {dev}, got {dist.get_backend()}, "
+              f"{mesh.size} ranks, {rank_dev}")
+        warm = torch.ones(1, device=dev)
+        dist.all_reduce(warm)        # the NCCL communicator is made at its first collective
+        torch.cuda.synchronize()
+        step = sharding.sharded_train_step(meta, cfg, cam, film_cfg, mesh, torch.float32,
+                                           with_bvh=True, device=dev)
+        (loss, grads), wall, launches_t, peak = run_counted(
+            tk, lambda: step(tables, cbvh, params, *rays, target), sync_debug=True)
+        apart = grads_apart(grads, step0["grads"])
+        log("multi", f"10a sharded train step, world of one (nccl), {cam.width}x{cam.height} 1 spp, "
+            f"max_bounces {GRAD_BOUNCES}: {wall:.3f} s, loss {float(loss):.9g} (9a step 0: "
+            f"{step0['loss']:.9g}), traversal launches {launches_t}, peak memory {peak:.3f} GiB; "
+            f"largest |dg| / largest |g| against 9a step 0: "
+            + ", ".join(f"{k[4:]} {v:.3g}" for k, v in apart.items()) + f" | {card}")
+        check(launches_t > 0, "multi", "the sharded train step launched no traversal")
+        check(abs(float(loss) - step0["loss"]) <= 1e-5 * abs(step0["loss"]), "multi",
+              "the sharded train step's loss is not 9a's")
+        check(all(v <= 1e-4 for v in apart.values()), "multi",
+              "the sharded train step's gradients are not 9a's")
+        # The one-device train step and the sharded one over this world of one,
+        # in turns on the same inputs and under the same debug mode: whether
+        # the group's two all-reduces cost the step any wall.
+        one = sharding.train_step(meta, cfg, cam, film_cfg, torch.float32, with_bvh=True, device=dev)
+        walls = {"train_step": [], "sharded_train_step": []}
+        for name, fn in (("train_step", one), ("sharded_train_step", step),
+                         ("sharded_train_step", step), ("train_step", one)):
+            (loss_i, _), wall_i, _, _ = run_counted(
+                tk, lambda: fn(tables, cbvh, params, *rays, target), sync_debug=True)
+            walls[name].append(wall_i)
+            check(abs(float(loss_i) - float(loss)) <= 1e-5 * abs(float(loss)), "multi",
+                  f"{name}: the loss moved between runs")
+        log("multi", f"10a in turns (train, sharded, sharded, train), walls: train_step "
+            + ", ".join(f"{w:.3f}" for w in walls["train_step"]) + " s; sharded_train_step "
+            + ", ".join(f"{w:.3f}" for w in walls["sharded_train_step"])
+            + f" s (its first call above: {wall:.3f} s) | {card}")
+        del one
+        rstep = sharding.sharded_render_step(meta, cfg, cam, film_cfg, mesh, torch.float32,
+                                             with_bvh=True, device=dev)
+        zero = torch.zeros((cam.height, cam.width, 4), device=dev)
+        film, wall_s, launches_s, peak_s = run_counted(tk, lambda: rstep(tables, cbvh, *rays, zero))
+        img_s = film_mod.scan(film).cpu().numpy()
+        # Two launches of the first chunk (131,072 rays, 512 blocks: a size no
+        # other phase checks) are held to the plain version afterwards: bounce
+        # 0's camera rays and bounce 8's rays, dead lanes parked among them.
+        dist_rec = LaunchRecorder(tk, at=(0, 16))
+        with mock.patch.object(tk, "traverse", dist_rec):
+            img_d, wall_d, launches_d, peak_d = run_counted(
+                tk, lambda: distributed.render_distributed(scene, 0, cfg1))
+        img_r, wall_r, launches_r, _ = run_counted(tk, lambda: mt.render(scene, 0, cfg1))
+        for name, img, w, n_l, pk in (("sharded_render_step", img_s, wall_s, launches_s, peak_s),
+                                      ("render_distributed", img_d, wall_d, launches_d, peak_d)):
+            bad, worst = images_apart(img, img_r)
+            log("multi", f"10a {name}, {cam.width}x{cam.height} 1 spp: {w:.3f} s, traversal "
+                f"launches {n_l}, peak memory {pk:.3f} GiB; against render() ({wall_r:.3f} s, "
+                f"{launches_r} launches): {bad} elements outside rtol {IMG_RTOL} atol {IMG_ATOL}, "
+                f"largest |d| {worst:.3g} | {card}")
+            check(n_l > 0, "multi", f"{name} launched no traversal")
+            check(bool(np.isfinite(img).all()) and bad == 0, "multi", f"{name} is not render()'s image")
+        held_to_plain(tk, dist_rec, "10a render_distributed chunk 0", card, phase="multi")
+        del dist_rec
+        loss_a, grads_a = float(loss), {k: g.cpu().numpy() for k, g in grads.items()}
+        del step, rstep, film, grads
+    finally:
+        dist.destroy_process_group()
+
+    # ---- 10b: MULTI_RANKS gloo ranks on the one card, one process each ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
+        work = pathlib.Path(tmp)
+        np.savez(work / "inputs.npz", target=target.cpu().numpy(), grid_n=GRID_N, width=cam.width,
+                 bounces=GRAD_BOUNCES, **{k: v.cpu().numpy() for k, v in params.items()})
+        torch.cuda.empty_cache()
+        port = distributed.free_port()
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for r in range(MULTI_RANKS):
+                with open(work / f"rank{r}.log", "w") as out:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(ROOT / "chip_smoke.py"), "rank", str(r),
+                         str(MULTI_RANKS), str(port), str(work)],
+                        cwd=ROOT, stdout=out, stderr=subprocess.STDOUT))
+            while any(p.poll() is None for p in procs) and time.perf_counter() - t0 < MULTI_TIMEOUT_S:
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:   # a rank still running after a failure or the timeout is stopped
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        wall_b = time.perf_counter() - t0
+        for r in range(MULTI_RANKS):
+            for line in (work / f"rank{r}.log").read_text().splitlines()[-40:]:
+                print(f"  rank {r}: {line}" if not line.startswith("[multi]") else line, flush=True)
+        codes = [p.returncode for p in procs]
+        check(all(c == 0 for c in codes), "multi", f"10b: the ranks exited with {codes} "
+              f"after {wall_b:.1f} s (timeout {MULTI_TIMEOUT_S:.0f} s)")
+        res = [dict(np.load(work / f"rank{r}.npz")) for r in range(MULTI_RANKS)]
+    same = all(np.array_equal(res[0][k], x[k]) for x in res[1:] for k in res[0] if k != "launches")
+    bad, worst = images_apart(res[0]["img"], img_d)
+    apart = grads_apart(res[0], grads_a)
+    log("multi", f"10b {MULTI_RANKS} gloo ranks on {dev}: {wall_b:.1f} s in all; every rank holds "
+        f"the same image, loss and gradients: {same}; render_distributed against 10a's: {bad} "
+        f"elements outside the bars, largest |d| {worst:.3g}; loss {float(res[0]['loss']):.9g} "
+        f"(10a {loss_a:.9g}); largest |dg| / largest |g| against 10a: "
+        + ", ".join(f"{k[4:]} {v:.3g}" for k, v in apart.items())
+        + f"; traversal launches per rank (render, train) "
+        + ", ".join(str(x["launches"].tolist()) for x in res) + f" | {card}")
+    check(same, "multi", "10b: the ranks hold different results")
+    check(all(bool((x["launches"] > 0).all()) for x in res), "multi",
+          "10b: a rank launched no traversal")
+    check(bad == 0, "multi", "10b: render_distributed is not 10a's image")
+    check(abs(float(res[0]["loss"]) - loss_a) <= 1e-5 * abs(loss_a), "multi",
+          "10b: the train step's loss is not 10a's")
+    check(all(v <= 1e-4 for v in apart.values()), "multi", "10b: the gradients are not 10a's")
+
+    # ---- 10c: render() with profile_dir writes a trace that names the kernel ----
+    scene.cameras.append(dataclasses.replace(cam, width=PROFILE_WIDTH, height=PROFILE_WIDTH))
+    idx = len(scene.cameras) - 1
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as tmp:
+        cfg_n = dataclasses.replace(cfg1, max_bounces=PROFILE_BOUNCES)
+        cfg_p = dataclasses.replace(cfg_n, profile_dir=tmp)
+        img_p, wall_p, launches_p, _ = run_counted(tk, lambda: mt.render(scene, idx, cfg_p))
+        files = list(pathlib.Path(tmp).glob("*.pt.trace.json"))
+        check(len(files) == 1, "multi", f"10c: {len(files)} trace files in profile_dir")
+        text = files[0].read_text()
+        events = json.loads(text)["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel" and "traverse_kernel" in e.get("name", "")]
+        log("multi", f"10c render with profile_dir, {PROFILE_WIDTH}x{PROFILE_WIDTH} 1 spp, max_bounces "
+            f"{PROFILE_BOUNCES}: {wall_p:.3f} s "
+            f"(profiler on), trace {files[0].name} {len(text) / 2**20:.1f} MiB, {len(events)} events, "
+            f"{len(kern)} traverse_kernel kernel events, {launches_p} launches counted | {card}")
+        check("traverse_kernel" in text and len(kern) > 0, "multi", "10c: the trace names no traverse_kernel")
+    img_n = mt.render(scene, idx, cfg_n)
+    bad, worst = images_apart(img_p, img_n)
+    check(bad == 0, "multi", f"10c: the profiled image is not the unprofiled one ({bad} elements)")
+    scene.cameras.pop()
+    return launches_t
 
 
 def kernel_phase(scene, j, cbvh, card, parent, rng):
@@ -1254,8 +1576,14 @@ def main() -> int:
 
     # ---- 9. the differentiable path ----
     t9 = time.perf_counter()
-    train_launches = grad_phase(scene, cbvh, card)
+    train_launches, step0 = grad_phase(scene, cbvh, card)
     log("done", f"phase 9 took {time.perf_counter() - t9:.1f} s, the whole run "
+        f"{time.perf_counter() - t_start:.1f} s | {card}")
+
+    # ---- 10. the multi-device steps ----
+    t10 = time.perf_counter()
+    multi_launches = multi_phase(scene, cbvh, card, step0)
+    log("done", f"phase 10 took {time.perf_counter() - t10:.1f} s, the whole run "
         f"{time.perf_counter() - t_start:.1f} s | {card}")
 
     mean = lambda key: sum(r[key] for r in timing.values()) / len(timing)
@@ -1266,6 +1594,7 @@ def main() -> int:
         "replaces": "mcrt_tpu/ops/traverse_kernel.py:53",
         "launches": launches,   # the path tracer's main path (phase 4)
         "train_launches": train_launches,   # phase 9a's train steps, forward and recompute
+        "sharded_train_launches": multi_launches,   # phase 10a's sharded train step
         "max_abs_err": max_err,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),
@@ -1288,4 +1617,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["rank"]:     # one rank of phase 10b, started by multi_phase
+        sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                           pathlib.Path(sys.argv[5])))
     sys.exit(main())

@@ -71,8 +71,13 @@ def generate_rays(
     u0 = sobol.sample(ctx, 0)
     u1 = sobol.sample(ctx, 1)
 
-    px = pixel_x.to(dtype) + u0
-    py = pixel_y.to(dtype) + u1
+    # The jittered position stays inside its pixel: in float32, x + u rounds up
+    # to x + 1 for u within half an ulp of x below 1 (about 4 samples of a
+    # 512x512 image), and the film's splat would then put the sample in the
+    # next pixel, where render()'s per-pixel sums keep it in its own.
+    fx, fy = pixel_x.to(dtype), pixel_y.to(dtype)
+    px = torch.minimum(fx + u0, torch.nextafter(fx + 1.0, fx))
+    py = torch.minimum(fy + u1, torch.nextafter(fy + 1.0, fy))
     local_x = k.pixel_size * (k.half_w - px)
     local_y = k.pixel_size * (k.half_h - py)
 

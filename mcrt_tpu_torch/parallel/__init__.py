@@ -1,1 +1,3 @@
-"""The renderer's training step (one device; multi-device is not ported yet)."""
+"""Rays sharded over ranks of torch.distributed: the render and train steps
+(`sharding`), the multi-process render (`distributed`) and its dry run
+(`dryrun`); `sharding.train_step` is the train step on one device."""

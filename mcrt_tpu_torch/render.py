@@ -12,6 +12,7 @@ the checkpoint directory), then runs the photon eye pass over the same chunks.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import pathlib
@@ -40,6 +41,7 @@ class RenderConfig:
     rays_per_chunk: int = 1 << 17     # paths per chunk
     sqrtspp: int | None = None        # override scene camera spp
     integrator: str = "path_tracer"   # or "photon_mapper"
+    profile_dir: str | None = None    # write a torch.profiler trace of the chunk loop there
     # Persistent-wavefront streaming: a chunk's paths stream through `lanes`
     # lanes; a lane whose path dies immediately loads the next one.
     streamed: bool = True
@@ -157,6 +159,23 @@ def _photon_maps(scene, tables, meta, pmcfg, cam, cfg, intersect_fn, checkpoint_
     return maps
 
 
+@contextlib.contextmanager
+def _profiler(profile_dir, device):
+    """torch.profiler over the body when profile_dir is set (CPU activity, plus
+    the card's kernels on CUDA), writing a TensorBoard trace file
+    (<host>_<pid>.<ns>.pt.trace.json) into profile_dir; nothing otherwise."""
+    if profile_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(str(profile_dir))):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)   # the trace ends with the last chunk's kernels
+
+
 def render(
     scene: Scene,
     camera_idx: int = 0,
@@ -257,24 +276,25 @@ def render(
     # average of camera rays/s over the last 32 chunks, and the ETA.
     recent = [(last_ckpt, done)]
     stats["chunks"] = 0
-    while done < total:
-        n = min(chunk, total - done)
-        film_acc = run_chunk(done, n, film_acc)
-        done += n
-        stats["chunks"] += 1
-        if ckpt_path is not None and time.monotonic() - last_ckpt > checkpoint_every_s:
-            save_ckpt()
-            last_ckpt = time.monotonic()
-        if verbose:
-            if film_acc.is_cuda:
-                torch.cuda.synchronize(film_acc.device)
-            now = time.monotonic()
-            recent = (recent + [(now, done)])[-32:]
-            dt = now - recent[0][0]
-            rate = (done - recent[0][1]) / dt if dt > 0 else 0.0
-            eta = (total - done) / rate if rate > 0 else float("inf")
-            print(f"\r{done}/{total} camera rays | {rate / 1e6:.2f} M rays/s | ETA {eta:.0f}s   ",
-                  end="", flush=True)
+    with _profiler(cfg.profile_dir, device):
+        while done < total:
+            n = min(chunk, total - done)
+            film_acc = run_chunk(done, n, film_acc)
+            done += n
+            stats["chunks"] += 1
+            if ckpt_path is not None and time.monotonic() - last_ckpt > checkpoint_every_s:
+                save_ckpt()
+                last_ckpt = time.monotonic()
+            if verbose:
+                if film_acc.is_cuda:
+                    torch.cuda.synchronize(film_acc.device)
+                now = time.monotonic()
+                recent = (recent + [(now, done)])[-32:]
+                dt = now - recent[0][0]
+                rate = (done - recent[0][1]) / dt if dt > 0 else 0.0
+                eta = (total - done) / rate if rate > 0 else float("inf")
+                print(f"\r{done}/{total} camera rays | {rate / 1e6:.2f} M rays/s | "
+                      f"ETA {eta:.0f}s   ", end="", flush=True)
     if verbose:
         print()
     save_ckpt()

@@ -46,7 +46,8 @@ def test_scan_covers_the_package():
     for must in ("render.py", "scene/loader.py", "ops/cluster_bvh.py", "ops/traverse_kernel.py",
                  "integrator/path_tracer.py", "sampling/sobol.py", "convert.py",
                  "accel/photon_grid.py", "accel/knn_kernel.py", "integrator/photon_mapper.py",
-                 "cli.py", "__main__.py", "parallel/sharding.py"):
+                 "cli.py", "__main__.py", "parallel/sharding.py", "parallel/distributed.py",
+                 "parallel/dryrun.py"):
         assert must in names
 
 
