@@ -62,7 +62,9 @@ Phases (each prints its own lines; any failed check exits non-zero):
                  version, bit for bit as in phase 3
               b. bench.py's bench_bwd point: trace_streamed(fixed_trips=64) over 2^17
                  paths a chunk at 1024 spp through 8192 lanes, loss mean(pixel
-                 mean^2) over the four tables, 4 chunks: rays traced per second
+                 mean^2) over the four tables, one chunk (phase 11a's bench times
+                 the point at bench.py's own chunk, 2^19 paths through 32768
+                 lanes): rays traced per second
                  forward+backward and forward alone (no_grad), the peak memory with
                  and without remat, the traversal launches per trip, and a profiled
                  chunk's device-busy share and the traversal's share of device time;
@@ -93,6 +95,26 @@ Phases (each prints its own lines; any failed check exits non-zero):
               c. render() at 64x64, 1 spp, max_bounces 8, with RenderConfig.profile_dir
                  set: one trace file, which names traverse_kernel, and the image of a
                  render without it
+  11. bench    the benchmark and the path tracer's switches, on the same scene:
+              a. `python -m mcrt_tpu_torch.bench` as a child process, as a user runs it
+                 (its backward point in a child of its own): the JSON line has
+                 bench.py's keys and the card's; its rays/s forward and
+                 forward+backward and both traversal counters are finite and above
+                 0, its rays per path within 10% of phase 4's, and both of its
+                 processes loaded the kernel library this run built from the
+                 checkout's source, with nothing new in _build/; the line, the
+                 walls and the traversal launches are printed
+              b. the 64x64 camera at 4 spp through make_intersect_fn(sort_rays=False)
+                 and through the default, held to the golden-image bars as in phase
+                 5; the unsorted render's launch 2 (bounce 1's primary rays, 16384
+                 in lane order) held to the plain version bit for bit, and its
+                 rounds per block printed beside the sorted render's launch 2
+              c. trace() of the 64x64 camera's rays at 1 spp with PTConfig(sky=False,
+                 collect_traversal_stats=True) against the default on the same rays:
+                 paths whose first ray misses give exactly 0, and the image is
+                 darker only on paths that escaped (a live ray missed); the
+                 traversal_steps equal the sum of the primary launches' stats,
+                 [candidates summed over blocks, most rounds of a block]
 
 The line before the last names the card and its power limit; the line before
 that is the JSON kernel table; the last line is the JSON result. Imports no JAX
@@ -140,9 +162,10 @@ PM_SQRTSPP = 2
 KNN_QUERIES = 1 << 14
 # Phase 9, the differentiable path on the same scene. 9a: plain SGD steps of the
 # train step at 512x512, 1 spp, 64 bounces; the step size is fixed. 9b: bench.py's
-# bench_bwd point (2^17 paths a chunk at 1024 spp, 8192 lanes, 64 trips, four
-# chunks). 9c: the kernel's gradients against the plain traversal's at 64x64,
-# 1 spp, 8 bounces.
+# bench_bwd point at 2^17 paths a chunk (1024 spp, 8192 lanes, 64 trips), one
+# chunk: phase 11a's bench times four at 2^19, and four here kept the whole run
+# too near its time limit on a slow host. 9c: the kernel's gradients against the
+# plain traversal's at 64x64, 1 spp, 8 bounces.
 GRAD_BOUNCES = 64
 SGD_STEPS = 3
 SGD_LR = 3.0
@@ -150,7 +173,7 @@ BWD_PATHS = 1 << 17
 BWD_SPP = 1024
 BWD_LANES = 8192
 BWD_TRIPS = 64
-BWD_CHUNKS = 4
+BWD_CHUNKS = 1
 CHECK_GRAD_WIDTH = 64
 CHECK_GRAD_BOUNCES = 8
 # Phase 10, the sharded steps on torch.distributed, on the same scene at 512x512,
@@ -164,6 +187,14 @@ PROFILE_WIDTH = 64
 PROFILE_BOUNCES = 8     # keeps the trace's CPU events (every op of every bounce) small
 IMG_RTOL = 2e-4
 IMG_ATOL = 2e-5
+# Phase 11: the bench as a user runs it (a child process, which runs its
+# backward point in a child of its own), then the tracer's switches through a
+# SWITCH_WIDTH^2 camera on the same scene.
+BENCH_CMD = [sys.executable, "-m", "mcrt_tpu_torch.bench"]
+BENCH_TIMEOUT_S = 600.0
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "fwd_bwd_rays_per_s_1024spp",
+              "fwd_bwd_chunk", "diag_walk_steps_32k", "diag_leaf_rounds_32k", "card"}
+SWITCH_WIDTH = 64
 ROOT = pathlib.Path(__file__).resolve().parent
 # The parent commit's traverse.cu, when one is handed in beside the checkout (it
 # is not part of the repo): phase 3 then times it in turns with this tree's
@@ -1316,6 +1347,146 @@ def multi_phase(scene, cbvh, card, step0):
     return launches_t
 
 
+def bench_phase(scene, cbvh, card, render_rays_per_path):
+    """Phase 11: the bench as a user runs it, then the unsorted intersect, the
+    sky switch and the traversal statistics. Returns the traversal launches of
+    the bench's two processes."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    import mcrt_tpu_torch as mt
+    from mcrt_tpu_torch.camera import camera as cam_mod
+    from mcrt_tpu_torch.camera import image as image_mod
+    from mcrt_tpu_torch.integrator import path_tracer as pt
+    from mcrt_tpu_torch.ops import cluster_bvh
+    from mcrt_tpu_torch.ops import traverse_kernel as tk
+
+    # ---- 11a: the bench, as a child process ----
+    lib = pathlib.Path(tk.kernel.lib._name)
+    built = sorted(p.name for p in lib.parent.iterdir())
+    t0 = time.perf_counter()
+    out = subprocess.run(BENCH_CMD, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+                         cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    err = out.stderr.splitlines()
+    lines = [line for line in out.stdout.splitlines() if line.startswith("{")]
+    if out.returncode != 0 or not lines:
+        print("\n".join(err[-30:]), flush=True)
+        fail("bench", f"`{' '.join(BENCH_CMD[1:])}` exited {out.returncode} with no result line")
+    res = json.loads(lines[-1])
+    log("bench", f"line: {lines[-1]}")
+    points = {r["point"]: r for r in (json.loads(line[len("bench: "):]) for line in err
+                                      if line.startswith("bench: "))}
+    check(set(res) == BENCH_KEYS, "bench", f"the line's keys {sorted(res)}")
+    for key in ("value", "fwd_bwd_rays_per_s_1024spp", "diag_walk_steps_32k", "diag_leaf_rounds_32k"):
+        check(isinstance(res[key], (int, float)) and np.isfinite(res[key]) and res[key] > 0, "bench",
+              f"{key} = {res[key]!r}")
+    check(set(points) == {"forward", "forward+backward"}, "bench", f"points reported: {sorted(points)}")
+    fwd, bwd = points["forward"], points["forward+backward"]
+    per_path = fwd["rays"] / (fwd["chunks"] * fwd["chunk"])
+    check(abs(per_path / render_rays_per_path - 1.0) <= 0.10, "bench",
+          f"rays per path {per_path:.4f} against phase 4's {render_rays_per_path:.4f}")
+    check(all(p["kernel_library"] == str(lib) for p in points.values()), "bench",
+          f"the bench loaded {[p['kernel_library'] for p in points.values()]}, not {lib}")
+    check(sorted(p.name for p in lib.parent.iterdir()) == built, "bench",
+          f"the bench built something in {lib.parent}")
+    launches = fwd["process_launches"] + bwd["process_launches"]
+    check(fwd["launches"] > 0 and fwd["diag_launches"] > 0 and bwd["launches"] > 0, "bench",
+          f"traversal launches forward {fwd['launches']}, diagnostic {fwd['diag_launches']}, "
+          f"forward+backward {bwd['launches']}")
+    log("bench", f"python -m mcrt_tpu_torch.bench: wall {wall:.1f} s; forward {fwd['chunks']} chunks of "
+        f"{fwd['chunk']} paths through {fwd['lanes']} lanes {fwd['time_s']:.3f} s, {fwd['rays']} rays "
+        f"({per_path:.4f} a path, phase 4 {render_rays_per_path:.4f}), {fwd['bounce_steps']} bounce steps, "
+        f"{fwd['launches']} traversal launches; diagnostic {fwd['diag_paths']} paths from path "
+        f"{fwd['diag_first_path']}, {fwd['diag_bounce_steps']} bounce steps, {fwd['diag_launches']} "
+        f"launches; forward+backward {bwd['reps']} chunks of {bwd['chunk']} paths through "
+        f"{bwd['lanes']} lanes, {bwd['trips']} trips, {bwd['time_s']:.3f} s, {bwd['rays']} rays, "
+        f"{bwd['launches']} launches; {launches} launches in all, warm-ups included; kernel library "
+        f"{lib.name} in both processes | {card}")
+
+    # ---- 11b: the unsorted intersect ----
+    dev = cbvh.rec.device
+    scene.cameras.append(dataclasses.replace(scene.cameras[0], width=SWITCH_WIDTH, height=SWITCH_WIDTH))
+    ci = len(scene.cameras) - 1
+    cfg_s = mt.RenderConfig(sqrtspp=2)
+    unsorted = functools.partial(cluster_bvh.make_intersect_fn, sort_rays=False)
+    recs = {"sorted": LaunchRecorder(tk, at=(2,)), "unsorted": LaunchRecorder(tk, at=(2,))}
+    imgs, walls = {}, {}
+    for name, rec in recs.items():
+        with mock.patch.object(tk, "traverse", rec), mock.patch.object(
+                cluster_bvh, "make_intersect_fn", unsorted if name == "unsorted" else cluster_bvh.make_intersect_fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs[name] = mt.render(scene, ci, cfg_s)
+            walls[name] = time.perf_counter() - t0
+    fin = lambda x: np.clip(image_mod.finalize(x, scene.cameras[ci].image), 0.0, 1.0)
+    a, b = fin(imgs["unsorted"]), fin(imgs["sorted"])
+    diff = np.abs(a - b)
+    per_channel = np.abs(a.mean(axis=(0, 1)) - b.mean(axis=(0, 1)))
+    p95 = float(np.percentile(diff, 95))
+    log("bench", f"{SWITCH_WIDTH}x{SWITCH_WIDTH} 4 spp unsorted vs sorted: per-channel mean diff "
+        f"{per_channel.max():.3g}, p95 {p95:.3g}, mean {diff.mean():.3g}, max {diff.max():.3g}, hdr "
+        f"identical {bool((imgs['unsorted'] == imgs['sorted']).all())}; walls "
+        f"{walls['unsorted']:.3f} s and {walls['sorted']:.3f} s")
+    check(bool(np.all(per_channel < 0.02)) and p95 < 0.25 and diff.mean() < 0.05, "bench",
+          "the unsorted render and the sorted render disagree")
+    for name, rec in recs.items():
+        check(2 in rec.seen, "bench", f"the {name} render made no launch 2")
+        o, st = rec.seen[2][1], rec.seen[2][3][4].double()
+        log("bench", f"{name} launch 2: {o.shape[0]} rays, {st.shape[0]} blocks, candidates per block "
+            f"mean {float(st[:, 0].mean()):.1f}, rounds per block mean {float(st[:, 1].mean()):.1f} "
+            f"max {int(st[:, 1].max())}, rounds in all {int(st[:, 1].sum())} | {card}")
+    check(recs["unsorted"].seen[2][1].shape[0] == SWITCH_WIDTH ** 2 * 4, "bench",
+          "the unsorted launch is not one ray a path")
+    held_to_plain(tk, recs["unsorted"], "11b unsorted launch", card, phase="bench")
+
+    # ---- 11c: the sky switch and the traversal statistics ----
+    cam_c = scene.cameras[ci]
+    tables = scene.tables(np.float32, dev)
+    meta = scene.meta()
+    ifn = cluster_bvh.make_intersect_fn(tables, meta, cbvh)
+    lin = torch.arange(cam_c.width * cam_c.height, device=dev)
+    rays = cam_mod.generate_rays(cam_c, lin % cam_c.width, lin // cam_c.width, torch.zeros_like(lin),
+                                 0, torch.float32)
+    calls = []
+
+    def recorded(o, d):
+        hit = ifn(o, d)
+        calls.append((o, hit.surf_id))
+        return hit
+
+    rec = LaunchRecorder(tk, at=range(1 << 16))
+    with mock.patch.object(tk, "traverse", rec):
+        off, st = pt.trace(tables, meta, pt.PTConfig(sky=False, collect_traversal_stats=True),
+                           rays.origin, rays.direction, rays.pixel_index, rays.sample_index,
+                           intersect_fn=recorded, return_stats=True)
+    on = pt.trace(tables, meta, pt.PTConfig(), rays.origin, rays.direction, rays.pixel_index,
+                  rays.sample_index, intersect_fn=ifn)
+    check(len(calls) == 2 * st["bounce_steps"] and len(rec.seen) == len(calls), "bench",
+          f"{len(calls)} intersects and {len(rec.seen)} launches for {st['bounce_steps']} bounce steps")
+    escaped = torch.zeros_like(lin, dtype=torch.bool)
+    for o, sid in calls[0::2]:                       # the primary intersects
+        escaped |= (o.abs().amax(dim=1) < 1e29) & (sid < 0)
+    first_miss = calls[0][1] < 0
+    darker = (off < on).any(dim=1)
+    want = sum(torch.stack([out[4][:, 0].sum(), out[4][:, 1].max()]).long()
+               for i, (_, _, _, out) in rec.seen.items() if i % 2 == 0)
+    got = st["traversal_steps"]
+    log("bench", f"{cam_c.width}x{cam_c.height} 1 spp, sky off against on: first rays missed "
+        f"{int(first_miss.sum())}, paths escaped {int(escaped.sum())}, darker {int(darker.sum())}, "
+        f"darker and not escaped {int((darker & ~escaped).sum())}; brighter anywhere "
+        f"{bool((off > on).any())}; traversal_steps {got.tolist()}, launches' stats {want.tolist()} "
+        f"over {st['bounce_steps']} primary launches | {card}")
+    check(bool(first_miss.any()) and bool((off[first_miss] == 0).all()), "bench",
+          "paths whose first ray missed are not 0 with the sky off")
+    check(not bool((off > on).any()) and not bool((darker & ~escaped).any()) and bool(darker.any()),
+          "bench", "the sky switch changed paths that did not escape")
+    check(torch.equal(got, want), "bench", "traversal_steps is not the sum of the launches' stats")
+    return launches
+
+
 def kernel_phase(scene, j, cbvh, card, parent, rng):
     """Phase 3: the traversal kernel against its plain version on five ray sets,
     then timed per set at the main path's launch shape. Returns the per-set
@@ -1586,6 +1757,12 @@ def main() -> int:
     log("done", f"phase 10 took {time.perf_counter() - t10:.1f} s, the whole run "
         f"{time.perf_counter() - t_start:.1f} s | {card}")
 
+    # ---- 11. the bench and the path tracer's switches ----
+    t11 = time.perf_counter()
+    bench_launches = bench_phase(scene, cbvh, card, rays_traced / cam_rays)
+    log("done", f"phase 11 took {time.perf_counter() - t11:.1f} s, the whole run "
+        f"{time.perf_counter() - t_start:.1f} s | {card}")
+
     mean = lambda key: sum(r[key] for r in timing.values()) / len(timing)
     kernels = [{
         "name": "cluster_bvh_traverse",
@@ -1595,6 +1772,7 @@ def main() -> int:
         "launches": launches,   # the path tracer's main path (phase 4)
         "train_launches": train_launches,   # phase 9a's train steps, forward and recompute
         "sharded_train_launches": multi_launches,   # phase 10a's sharded train step
+        "bench_launches": bench_launches,   # python -m mcrt_tpu_torch.bench, both processes (11a)
         "max_abs_err": max_err,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),

@@ -38,7 +38,13 @@ class PTConfig:
     min_ray_depth: int = 3            # RR kicks in past this many diffuse bounces
     min_priority_ray_depth: int = 16  # ... or this many total bounces
     ior_stack_size: int = 8
+    sky: bool = True                  # add the sky gradient on a miss
     global_seed: int = 0
+    # Sum the primary intersect's Hit.steps over the bounces, on the device:
+    # [candidates summed over blocks, most rounds of a block] of each traversal
+    # launch (the TPU kernel's stats), summed over bounces. `trace` returns them
+    # as stats["traversal_steps"]; `trace_streamed` does not.
+    collect_traversal_stats: bool = False
 
 
 def ray_offset_eps(dtype) -> float:
@@ -68,6 +74,7 @@ def sky_color(direction):
 class PathState(NamedTuple):
     bounce: torch.Tensor            # (R,) int32 — per lane (streamed lanes run paths at different depths)
     ray_count: torch.Tensor         # scalar int64: rays traced (primary + shadow)
+    trav_steps: torch.Tensor        # (2,) int64 [candidates, rounds] of the primary intersects
     path_id: torch.Tensor           # (R,) int32 local path index
     next_path: torch.Tensor         # scalar int64: next unassigned path (streamed)
     out_rad: torch.Tensor           # finished radiance (streamed): (n_out + 1, 3), last row =
@@ -138,11 +145,15 @@ def make_bounce_step(
 
         hit = intersect_fn(st.origin, st.direction)
         ray_count = st.ray_count + st.alive.sum()
+        trav_steps = st.trav_steps
+        if cfg.collect_traversal_stats and hit.steps is not None:
+            trav_steps = trav_steps + hit.steps
         missed = hit.surf_id < 0
-        # Sky gradient on miss.
-        radiance = st.radiance + torch.where(
-            (st.alive & missed)[:, None], st.throughput * sky_color(st.direction),
-            torch.zeros_like(st.radiance))
+        radiance = st.radiance
+        if cfg.sky:
+            radiance = radiance + torch.where(
+                (st.alive & missed)[:, None], st.throughput * sky_color(st.direction),
+                torch.zeros_like(radiance))
         alive = st.alive & ~missed
 
         ix = common.interaction_setup(
@@ -275,6 +286,7 @@ def make_bounce_step(
         return PathState(
             bounce=bounce,
             ray_count=ray_count,
+            trav_steps=trav_steps,
             path_id=path_id,
             next_path=next_path,
             out_rad=out_rad,
@@ -312,6 +324,7 @@ def _init_state(tables, cfg, origin, direction, pixel_index, sample_index, alive
     return PathState(
         bounce=i0,
         ray_count=torch.zeros((), dtype=torch.int64, device=dev),
+        trav_steps=torch.zeros((2,), dtype=torch.int64, device=dev),
         path_id=path_id,
         next_path=next_path,
         out_rad=out_rad,
@@ -376,7 +389,9 @@ def trace(
     remat: bool = True,
 ):
     """Trace a batch of camera rays to radiance. Returns (R,3) radiance
-    (and {"rays": count, "bounce_steps": steps run} with return_stats).
+    (and {"rays": count, "bounce_steps": steps run} with return_stats, plus
+    "traversal_steps" when cfg.collect_traversal_stats: only counters that
+    were collected are returned, so untouched zeros never pass for a count).
 
     The default loop stops when every lane died or the slowest reached
     max_bounces, with one host sync per bounce. `differentiable=True` runs
@@ -406,7 +421,10 @@ def trace(
             st = step(st)
             steps += 1
     if return_stats:
-        return st.radiance, {"rays": st.ray_count, "bounce_steps": steps}
+        stats = {"rays": st.ray_count, "bounce_steps": steps}
+        if cfg.collect_traversal_stats:
+            stats["traversal_steps"] = st.trav_steps
+        return st.radiance, stats
     return st.radiance
 
 
