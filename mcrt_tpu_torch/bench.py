@@ -38,7 +38,6 @@ it would hide a failure. A failed point makes the bench exit non-zero.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import pathlib
 import subprocess
@@ -104,8 +103,8 @@ def bench_ours(scene: Scene, device=None, chunk_lg: int = CHUNK_LG, lanes: int =
     """Forward rays/s of the streamed path tracer over the scene's first camera
     at its spp: one warm-up chunk, then every whole chunk of the image timed,
     with the ray counts kept on the device and one synchronisation at the end
-    inside the timer. Then a 2^diag_lg-path trace with the traversal
-    statistics on (the timed chunks run with them off, as in bench.py)."""
+    inside the timer. Then a 2^diag_lg-path trace from the middle row, whose
+    stats give the traversal counters."""
     device = resolve_device(device)
     cam = scene.cameras[0]
     spp = cam.sqrtspp ** 2
@@ -150,9 +149,8 @@ def bench_ours(scene: Scene, device=None, chunk_lg: int = CHUNK_LG, lanes: int =
     first = _middle_row(cam, spp, n_diag)
     rays = _camera_rays(cam, spp, first, n_diag, seed, torch.float32, device)
     diag_launches = tk.kernel.launches
-    _, st = pt.trace(tables, meta, dataclasses.replace(cfg, collect_traversal_stats=True),
-                     rays.origin, rays.direction, rays.pixel_index, rays.sample_index,
-                     intersect_fn=intersect_fn, return_stats=True)
+    _, st = pt.trace(tables, meta, cfg, rays.origin, rays.direction, rays.pixel_index,
+                     rays.sample_index, intersect_fn=intersect_fn, return_stats=True)
     candidates, rounds = (int(x) for x in st["traversal_steps"])
     _report("forward", device=str(device), chunks=len(ray_counts), chunk=chunk,
             lanes=min(lanes, chunk), time_s=dt, rays=total_rays, bounce_steps=stats["bounce_steps"],
@@ -170,20 +168,24 @@ def bench_ours(scene: Scene, device=None, chunk_lg: int = CHUNK_LG, lanes: int =
     }
 
 
-def bench_bwd(scene: Scene, device=None, chunk_lg: int = BWD_CHUNK_LG, reps: int = BWD_REPS,
-              trips: int = BWD_TRIPS, seed: int = 0) -> dict:
-    """Forward+backward rays/s: torch.autograd.grad of mean(pixel mean^2) over
-    a chunk of 2^chunk_lg paths at 1024 spp with respect to the four material
-    tables, through trace_streamed(fixed_trips=trips) with every trip
-    rematerialised, max(1024, paths / 16) lanes. One warm-up chunk, whose loss
-    and gradients must be finite, then `reps` chunks side by side from the
-    middle row, timed with one synchronisation at the end."""
+def bwd_lanes(n_paths: int) -> int:
+    """The forward+backward point's lanes for a chunk of n_paths paths."""
+    return max(1024, n_paths // 16)
+
+
+def bwd_chunk(scene: Scene, device=None, chunk_lg: int = BWD_CHUNK_LG, trips: int = BWD_TRIPS,
+              seed: int = 0):
+    """The forward+backward point's unit of work. Returns (chunk, params):
+    chunk(i, remat=True) traces the i-th chunk of 2^chunk_lg paths at 1024 spp
+    (side by side from the image's middle row) through
+    trace_streamed(fixed_trips=trips) over bwd_lanes(2^chunk_lg) lanes, and
+    returns (mean(pixel mean^2), rays traced); params are the four material
+    tables as leaves that require grad."""
     device = resolve_device(device)
     cam = scene.cameras[0]
     n_paths = 1 << chunk_lg
     if n_paths % BWD_SPP:
         raise ValueError(f"a chunk of {n_paths} paths is not whole pixels at {BWD_SPP} spp")
-    lanes = max(1024, n_paths // 16)
     tables = scene.tables(np.float32, device)
     meta = scene.meta()
     cbvh = scene.build_cluster_bvh(np.float32, device)
@@ -192,14 +194,32 @@ def bench_bwd(scene: Scene, device=None, chunk_lg: int = BWD_CHUNK_LG, reps: int
     total = cam.width * cam.height * BWD_SPP
     first = _middle_row(cam, BWD_SPP, n_paths)
 
-    def loss_and_grads(i):
+    def chunk(i: int, remat: bool = True):
         start = (first + i * n_paths) % (total - n_paths) if total > n_paths else 0
         t = tables._replace(**params)
         ifn = cluster_bvh.make_intersect_fn(t, meta, cbvh)
-        out, rays = pt.trace_streamed(t, meta, cfg, cam, BWD_SPP, start, n_paths, lanes,
-                                      intersect_fn=ifn, fixed_trips=trips)
+        out, rays = pt.trace_streamed(t, meta, cfg, cam, BWD_SPP, start, n_paths,
+                                      bwd_lanes(n_paths), intersect_fn=ifn, fixed_trips=trips,
+                                      remat=remat)
         pixel_mean = out.view(-1, BWD_SPP, 3).sum(dim=1) / BWD_SPP
-        loss = (pixel_mean ** 2).mean()
+        return (pixel_mean ** 2).mean(), rays
+
+    chunk.first_path = first
+    return chunk, params
+
+
+def bench_bwd(scene: Scene, device=None, chunk_lg: int = BWD_CHUNK_LG, reps: int = BWD_REPS,
+              trips: int = BWD_TRIPS, seed: int = 0) -> dict:
+    """Forward+backward rays/s: torch.autograd.grad of bwd_chunk's loss with
+    respect to the four material tables, every trip rematerialised. One
+    warm-up chunk, whose loss and gradients must be finite, then chunks 0 to
+    reps - 1 timed with one synchronisation at the end."""
+    device = resolve_device(device)
+    chunk, params = bwd_chunk(scene, device, chunk_lg, trips, seed)
+    n_paths = 1 << chunk_lg
+
+    def loss_and_grads(i):
+        loss, rays = chunk(i)
         return loss.detach(), rays, torch.autograd.grad(loss, list(params.values()))
 
     def check_finite(loss, grads, what):
@@ -219,8 +239,9 @@ def bench_bwd(scene: Scene, device=None, chunk_lg: int = BWD_CHUNK_LG, reps: int
     launches = tk.kernel.launches - launches
     check_finite(loss, grads, "last chunk")
     total_rays = int(torch.stack(rays_list).sum())
-    _report("forward+backward", device=str(device), reps=reps, chunk=n_paths, lanes=lanes,
-            trips=trips, first_path=first, time_s=dt, rays=total_rays, launches=launches)
+    _report("forward+backward", device=str(device), reps=reps, chunk=n_paths,
+            lanes=bwd_lanes(n_paths), trips=trips, first_path=chunk.first_path, time_s=dt,
+            rays=total_rays, launches=launches)
     return {
         "rays_per_s": total_rays / dt,
         "chunk": n_paths,

@@ -38,13 +38,7 @@ class PTConfig:
     min_ray_depth: int = 3            # RR kicks in past this many diffuse bounces
     min_priority_ray_depth: int = 16  # ... or this many total bounces
     ior_stack_size: int = 8
-    sky: bool = True                  # add the sky gradient on a miss
     global_seed: int = 0
-    # Sum the primary intersect's Hit.steps over the bounces, on the device:
-    # [candidates summed over blocks, most rounds of a block] of each traversal
-    # launch (the TPU kernel's stats), summed over bounces. `trace` returns them
-    # as stats["traversal_steps"]; `trace_streamed` does not.
-    collect_traversal_stats: bool = False
 
 
 def ray_offset_eps(dtype) -> float:
@@ -74,7 +68,7 @@ def sky_color(direction):
 class PathState(NamedTuple):
     bounce: torch.Tensor            # (R,) int32 — per lane (streamed lanes run paths at different depths)
     ray_count: torch.Tensor         # scalar int64: rays traced (primary + shadow)
-    trav_steps: torch.Tensor        # (2,) int64 [candidates, rounds] of the primary intersects
+    trav_steps: torch.Tensor        # (2,) int64: the primary intersects' Hit.steps, summed
     path_id: torch.Tensor           # (R,) int32 local path index
     next_path: torch.Tensor         # scalar int64: next unassigned path (streamed)
     out_rad: torch.Tensor           # finished radiance (streamed): (n_out + 1, 3), last row =
@@ -132,7 +126,14 @@ def make_bounce_step(
     intersect_fn: Callable,
     regen: RegenCfg | None = None,
 ):
-    """Builds the single-bounce transition function over PathState."""
+    """Builds the single-bounce transition function over PathState.
+
+    Each step adds the primary intersect's Hit.steps, where the intersect
+    reports them, to PathState.trav_steps on the device (no host sync), and
+    sets the returned function's `counted` to True. For the cluster BVH these
+    are the traversal kernel's [candidates summed over blocks, most rounds of
+    a block] of each launch (the Pallas kernel's stats), summed over bounces;
+    the shadow intersect's are not counted."""
     dtype = tables.tri_v0.dtype
     eps = ray_offset_eps(dtype)
     K = cfg.ior_stack_size
@@ -146,14 +147,14 @@ def make_bounce_step(
         hit = intersect_fn(st.origin, st.direction)
         ray_count = st.ray_count + st.alive.sum()
         trav_steps = st.trav_steps
-        if cfg.collect_traversal_stats and hit.steps is not None:
+        if hit.steps is not None:
+            step.counted = True
             trav_steps = trav_steps + hit.steps
         missed = hit.surf_id < 0
-        radiance = st.radiance
-        if cfg.sky:
-            radiance = radiance + torch.where(
-                (st.alive & missed)[:, None], st.throughput * sky_color(st.direction),
-                torch.zeros_like(radiance))
+        # Sky gradient on miss.
+        radiance = st.radiance + torch.where(
+            (st.alive & missed)[:, None], st.throughput * sky_color(st.direction),
+            torch.zeros_like(st.radiance))
         alive = st.alive & ~missed
 
         ix = common.interaction_setup(
@@ -310,6 +311,7 @@ def make_bounce_step(
             prev_select_prob=prev_select_prob,
         )
 
+    step.counted = False
     return step
 
 
@@ -390,8 +392,8 @@ def trace(
 ):
     """Trace a batch of camera rays to radiance. Returns (R,3) radiance
     (and {"rays": count, "bounce_steps": steps run} with return_stats, plus
-    "traversal_steps" when cfg.collect_traversal_stats: only counters that
-    were collected are returned, so untouched zeros never pass for a count).
+    "traversal_steps", the primary intersects' Hit.steps summed, when the
+    intersect reported them: untouched zeros never pass for a count).
 
     The default loop stops when every lane died or the slowest reached
     max_bounces, with one host sync per bounce. `differentiable=True` runs
@@ -422,7 +424,7 @@ def trace(
             steps += 1
     if return_stats:
         stats = {"rays": st.ray_count, "bounce_steps": steps}
-        if cfg.collect_traversal_stats:
+        if step.counted:
             stats["traversal_steps"] = st.trav_steps
         return st.radiance, stats
     return st.radiance

@@ -15,8 +15,8 @@ per-ray pruning) lives in ops/traverse_kernel.py: a CUDA kernel for tensors on
 the card, and its plain PyTorch version for tensors on the CPU.
 
 `make_intersect_fn` wraps it the way the JAX package does: coherence sort of
-the rays (unless `sort_rays=False`), traversal, unsort, `refine_tri_hit` of
-the winner, then brute-force spheres and quadrics.
+the rays, traversal, unsort, `refine_tri_hit` of the winner, then brute-force
+spheres and quadrics.
 """
 from __future__ import annotations
 
@@ -174,19 +174,12 @@ def coherence_key(origin, direction, bb_lo, bb_hi):
     return (octant << 27) | (om << 9) | dm
 
 
-def make_intersect_fn(tables: SceneTables, meta: SceneMeta, cbvh: ClusterBVH,
-                      sort_rays: bool = True):
+def make_intersect_fn(tables: SceneTables, meta: SceneMeta, cbvh: ClusterBVH):
     """Scene intersect closure: cluster BVH for triangles + brute spheres/quadrics.
 
-    sort_rays: group the rays into coherent K-ray blocks by the Morton/octant
-    key inside this wrapper (permute origin/direction in, unpermute the hit
-    fields out), so the integrator's carry stays in lane order. False sends
-    the rays to the traversal in lane order: incoherent blocks, which cull
-    fewer clusters and run more rounds for the same closest-hit function.
-
-    The JAX package's `block`, `method` and `group` arguments are not ported:
-    the kernel's K is fixed (traverse_kernel.BLOCK), and `method` chooses only
-    among TPU formulations of the same closest-hit function.
+    Rays are grouped into coherent K-ray blocks by the Morton/octant key inside
+    this wrapper (permute origin/direction in, unpermute the hit fields out),
+    so the integrator's carry stays in lane order.
 
     Hit.steps is [candidates summed over blocks, most rounds of any block]."""
     geo_pack = build_geo_pack(tables) if meta.n_tris else None
@@ -197,19 +190,15 @@ def make_intersect_fn(tables: SceneTables, meta: SceneMeta, cbvh: ClusterBVH,
         # rays; refine_tri_hit below re-evaluates the winner from the real rays.
         sg_o = origin.detach()
         sg_d = direction.detach()
-        if sort_rays:
-            key = coherence_key(sg_o, sg_d, cbvh.bb_lo, cbvh.bb_hi)
-            perm = torch.argsort(key, stable=True)
-            t_s, id_s, u_s, v_s, stats = traverse_kernel.traverse(cbvh, sg_o[perm], sg_d[perm])
-            best_t = torch.empty_like(t_s)
-            best_id = torch.empty_like(id_s)
-            best_uv = torch.empty((len(perm), 2), dtype=u_s.dtype, device=origin.device)
-            best_t[perm] = t_s
-            best_id[perm] = id_s
-            best_uv[perm] = torch.stack([u_s, v_s], dim=-1)
-        else:
-            best_t, best_id, u, v, stats = traverse_kernel.traverse(cbvh, sg_o, sg_d)
-            best_uv = torch.stack([u, v], dim=-1)
+        key = coherence_key(sg_o, sg_d, cbvh.bb_lo, cbvh.bb_hi)
+        perm = torch.argsort(key, stable=True)
+        t_s, id_s, u_s, v_s, stats = traverse_kernel.traverse(cbvh, sg_o[perm], sg_d[perm])
+        best_t = torch.empty_like(t_s)
+        best_id = torch.empty_like(id_s)
+        best_uv = torch.empty((len(perm), 2), dtype=u_s.dtype, device=origin.device)
+        best_t[perm] = t_s
+        best_id[perm] = id_s
+        best_uv[perm] = torch.stack([u_s, v_s], dim=-1)
         best_t = best_t.to(origin.dtype)
         best_uv = best_uv.to(origin.dtype)
         steps = torch.stack([stats[:, 0].sum(), stats[:, 1].max()])

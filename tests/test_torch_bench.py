@@ -67,6 +67,24 @@ def test_bench_bwd_tiny():
     assert float(seen[-1][0].abs().max()) > 0      # the reflectance gradient
 
 
+def test_bwd_chunk_forward_alone_and_without_remat():
+    """bench_bwd's unit of work, as chip_smoke.py's phase 9b checks it around
+    bench_bwd: the chunk traced without gradients traces the same rays, and
+    its loss and gradients without remat equal those with it."""
+    chunk, params = bench.bwd_chunk(bench.bench_scene(8, 16, 1), "cpu", chunk_lg=10, trips=16)
+    with torch.no_grad():
+        _, rays_f = chunk(1)
+    got = {}
+    for remat in (True, False):
+        loss, rays = chunk(1, remat=remat)
+        got[remat] = (loss.detach(), torch.autograd.grad(loss, list(params.values())))
+        assert int(rays) == int(rays_f)
+    assert torch.equal(got[True][0], got[False][0])
+    for a, b in zip(got[True][1], got[False][1]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+    assert chunk.first_path == 8 * 16 * 1024      # the middle row's first pixel
+
+
 def test_line_keys_are_bench_py_keys():
     """main's line: bench.py's keys, and the card's."""
     assert _keys(pathlib.Path(bench.__file__), "main") == _keys(BENCH_PY, "main") | {"card"}

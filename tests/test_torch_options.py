@@ -1,13 +1,17 @@
-"""The path tracer's switches against the JAX package's: the sky term
-(`PTConfig.sky`), the traversal statistics (`PTConfig.collect_traversal_stats`)
-and the unsorted intersect (`make_intersect_fn(..., sort_rays=False)`).
+"""The path tracer's traversal statistics and the intersect in lane order,
+against the JAX package's `PTConfig(collect_traversal_stats=True)` and
+`make_intersect_fn(..., sort_rays=False)`.
+
+The port always sums the primary intersect's Hit.steps and `trace` returns
+them as "traversal_steps" when the intersect reported any; it has no switch
+for them, and none for the ray order: its intersect always sorts, and the
+lane-order route is reached here by making `coherence_key` the lane index,
+so that the stable sort keeps the lanes in order.
 
 float64 scene tables on the CPU (the traversal statistics over float32
 cluster tables, which the Pallas kernel takes; the unsorted hits in float32
-too), in-repo scenes only: the inline height field, whose camera sees sky over
-the upper part of the image (about 46% of first rays miss at 16x16), so the
-sky switch changes what comes out. Inputs are made from a seed with numpy and
-handed to both packages.
+too), in-repo scenes only: the inline height field. Inputs are made from a
+seed with numpy and handed to both packages.
 
 Bars:
 - radiance: |port - JAX| <= 1e-8 on at least 99.5% of paths, the bar of
@@ -39,10 +43,7 @@ from mcrt_tpu.scene.loader import Scene as JScene  # noqa: E402
 torch.set_num_threads(1)  # pytest-xdist runs several workers on the same cores
 
 W = 16
-SPP = 2
-LANES = 128          # fewer lanes than the 512 paths: lanes reload paths
 BOUNCES = 8
-TRIPS = 12           # fixed-trip runs: some paths are still in flight at the end
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,56 +77,6 @@ def _bvh_fns(ts, js, tt, jt):
 
 
 # ---------------------------------------------------------------------------------
-# (a) the sky switch
-# ---------------------------------------------------------------------------------
-
-@pytest.mark.parametrize("route", ["trace", "trace_differentiable", "streamed", "streamed_fixed"])
-def test_sky_off_radiance_matches_jax(route):
-    """PTConfig(sky=False) through the BVH on each route of the bounce step:
-    per-path radiance against the JAX package's at the radiance bar. Then the
-    port alone: sky off is sky on less a nonnegative term, paths whose first
-    ray misses give exactly 0, and some paths do (the switch is exercised)."""
-    ts, js = _scenes()
-    tt, jt = ts.tables(np.float64, "cpu"), js.tables(jnp.float64)
-    tfn, jfn = _bvh_fns(ts, js, tt, jt)
-    tcfg = tpt.PTConfig(max_bounces=BOUNCES, sky=False)
-    jcfg = jpt.PTConfig(max_bounces=BOUNCES, sky=False)
-    if route.startswith("trace"):
-        diff = route == "trace_differentiable"
-        jr, (o, d, pi, si) = _camera_rays(js, jt, W, SPP)
-
-        def port(cfg):
-            return tpt.trace(tt, ts.meta(), cfg, o, d, pi, si, intersect_fn=tfn,
-                             differentiable=diff, remat=False)
-
-        want = jpt.trace(jt, js.meta(), jcfg, jr.origin, jr.direction, jr.pixel_index,
-                         jr.sample_index, intersect_fn=jfn, differentiable=diff, remat=False)
-        first_miss = tfn(o, d).surf_id < 0
-    else:
-        trips = TRIPS if route == "streamed_fixed" else None
-        n = W * W * SPP
-
-        def port(cfg):
-            return tpt.trace_streamed(tt, ts.meta(), cfg, ts.cameras[0], SPP, 0, n, LANES,
-                                      intersect_fn=tfn, fixed_trips=trips)[0]
-
-        want, _ = jpt.trace_streamed(jt, js.meta(), jcfg, js.cameras[0], SPP, 0, n, LANES,
-                                     intersect_fn=jfn, fixed_trips=trips)
-        lin = torch.arange(n)
-        r = tcam.generate_rays(ts.cameras[0], (lin // SPP) % W, lin // SPP // W, lin % SPP, 0,
-                               torch.float64)
-        first_miss = tfn(r.origin, r.direction).surf_id < 0
-    got = port(tcfg)
-    assert got.shape == (W * W * SPP, 3)
-    assert _close_share(got.numpy(), want) >= 0.995
-    with_sky = port(tpt.PTConfig(max_bounces=BOUNCES))
-    assert bool((got <= with_sky).all())
-    assert 0.2 < float(first_miss.double().mean()) < 0.8
-    assert bool((got[first_miss] == 0).all()) and bool((with_sky[first_miss] > 0).any())
-    assert float(got[~first_miss].mean()) > 0.0
-
-
-# ---------------------------------------------------------------------------------
 # (b) the traversal statistics
 # ---------------------------------------------------------------------------------
 
@@ -135,21 +86,20 @@ def _pallas_interpret(cbvh, origin, direction, block=256, method=None, group=8):
 
 
 def test_traversal_steps_match_pallas(monkeypatch):
-    """trace(..., return_stats=True) with PTConfig(collect_traversal_stats=True)
-    at 32x32, 1 spp, on a 4608-triangle height field (63 clusters, so blocks
+    """trace(..., return_stats=True) through the cluster BVH at 32x32, 1 spp, on a 4608-triangle height field (63 clusters, so blocks
     prune): stats["traversal_steps"], [candidates, rounds] of the primary
     intersects summed over bounces, equal as integers to the JAX package's
     through the Pallas kernel in interpret mode, with float64 paths over
     float32 cluster tables in both; the rays traced equal too. The
     differentiable route adds the same counts (its extra trips see only parked
-    blocks, which cost nothing), and with the switch off the key is absent."""
+    blocks, which cost nothing)."""
     width = 32
     ts, js = _scenes(48, width)
     tt, jt = ts.tables(np.float64, "cpu"), js.tables(jnp.float64)
     tfn = tcb.make_intersect_fn(tt, ts.meta(), ts.build_cluster_bvh(np.float32, "cpu"))
     jb = js.build_cluster_bvh(np.float32)
     jr, (o, d, pi, si) = _camera_rays(js, jt, width, 1, seed=1)
-    cfg = tpt.PTConfig(max_bounces=BOUNCES, collect_traversal_stats=True)
+    cfg = tpt.PTConfig(max_bounces=BOUNCES)
     got, st = tpt.trace(tt, ts.meta(), cfg, o, d, pi, si, intersect_fn=tfn, return_stats=True)
     monkeypatch.setattr(jcb, "traverse", _pallas_interpret)
     want, jst = jpt.trace(jt, js.meta(), jpt.PTConfig(max_bounces=BOUNCES, collect_traversal_stats=True),
@@ -166,18 +116,38 @@ def test_traversal_steps_match_pallas(monkeypatch):
     _, st_diff = tpt.trace(tt, ts.meta(), cfg, o, d, pi, si, intersect_fn=tfn,
                            return_stats=True, differentiable=True, remat=False)
     assert torch.equal(st_diff["traversal_steps"], steps)
-    _, st_off = tpt.trace(tt, ts.meta(), tpt.PTConfig(max_bounces=BOUNCES), o, d, pi, si,
-                          intersect_fn=tfn, return_stats=True)
-    assert "traversal_steps" not in st_off and int(st_off["rays"]) == int(st["rays"])
+
+
+@pytest.mark.parametrize("differentiable", [False, True])
+def test_traversal_steps_absent_without_counts(differentiable):
+    """The brute-force intersect reports no Hit.steps, so `trace` returns no
+    "traversal_steps": zeros that nothing counted never pass for a count.
+    The rays and the radiance are those of the same trace through the BVH."""
+    ts, js = _scenes()
+    tt, jt = ts.tables(np.float64, "cpu"), js.tables(jnp.float64)
+    tfn, _ = _bvh_fns(ts, js, tt, jt)
+    _, (o, d, pi, si) = _camera_rays(js, jt, W, 1, seed=2)
+    cfg = tpt.PTConfig(max_bounces=BOUNCES)
+    kw = dict(return_stats=True, differentiable=differentiable, remat=False)
+    brute, st = tpt.trace(tt, ts.meta(), cfg, o, d, pi, si, **kw)
+    bvh, st_bvh = tpt.trace(tt, ts.meta(), cfg, o, d, pi, si, intersect_fn=tfn, **kw)
+    assert "traversal_steps" not in st and "traversal_steps" in st_bvh
+    assert int(st["rays"]) == int(st_bvh["rays"])
+    assert _close_share(brute.numpy(), bvh.numpy()) >= 0.995
 
 
 # ---------------------------------------------------------------------------------
-# (c) the unsorted intersect
+# (c) the intersect in lane order
 # ---------------------------------------------------------------------------------
+
+def _lane_order(origin, direction, bb_lo, bb_hi):
+    return torch.arange(origin.shape[0], device=origin.device)
+
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_unsorted_hits_match_jax(dtype):
-    """make_intersect_fn(sort_rays=False) against the JAX package's with
+def test_unsorted_hits_match_jax(dtype, monkeypatch):
+    """The port's make_intersect_fn with coherence_key patched to the lane
+    index (rays traversed in lane order) against the JAX package's with
     sort_rays=False, on 1024 rays in a shuffled order (half camera rays, half
     leaving points above the field in random directions): ids identical, t and
     uv at the unsorted-hits bar, and the same hits as the port's sorted
@@ -199,9 +169,10 @@ def test_unsorted_hits_match_jax(dtype):
                         dd / np.linalg.norm(dd, axis=1, keepdims=True)]).astype(dtype)
     mix = rng.permutation(n)
     o, d = o[mix], d[mix]
-    got = tcb.make_intersect_fn(tt, ts.meta(), tb, sort_rays=False)(torch.as_tensor(o), torch.as_tensor(d))
     want = jcb.make_intersect_fn(jt, js.meta(), jb, sort_rays=False)(jnp.asarray(o), jnp.asarray(d))
     sorted_ = tcb.make_intersect_fn(tt, ts.meta(), tb)(torch.as_tensor(o), torch.as_tensor(d))
+    monkeypatch.setattr(tcb, "coherence_key", _lane_order)
+    got = tcb.make_intersect_fn(tt, ts.meta(), tb)(torch.as_tensor(o), torch.as_tensor(d))
     np.testing.assert_array_equal(got.surf_id.numpy(), np.asarray(want.surf_id))
     hit = np.asarray(want.surf_id) >= 0
     assert hit.sum() > n // 4
