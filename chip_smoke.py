@@ -22,11 +22,23 @@ Phases (each prints its own lines; any failed check exits non-zero):
               the split of a launch's clock64() cycles per block
   4. render   mcrt_tpu_torch.render of the height-field scene at 512x512, 16 spp,
               max_bounces 64, default RenderConfig, with the kernel's launch count
-              reset before and read after (and, given the parent's kernel, the
-              same render through it and through this one in turns); then a
-              profiled 1-spp render for the kernel's share of device time
-  5. compare  the same scene at 64x64, 4 spp, through the kernel and through the
-              plain traversal on the card, held to the golden-image bars
+              reset before and read after: the bounce step captured once as a
+              CUDA graph and replayed. Then the same render with the step called
+              eagerly (eager_render) and graphed again, timed in turns: launches
+              (2 a bounce step), bounce steps and rays identical, images within
+              rtol 2e-4, atol 2e-5 (and, given the parent's kernel, the same
+              render through it and through this one in turns); then profiled
+              1-spp renders, graphed and eager, for the device-busy share and the
+              kernel's share of device time
+     4b.      at 64x64, 4 spp: the graphed render against the eager loop with the
+              same bars, rays, bounce steps and launches; then one chunk driven
+              bounce by bounce, whose captured traversal launch is held to the
+              plain version bit for bit after replay 1 and replay 3, and the graph
+              pool's size
+  5. compare  the same scene at 64x64, 4 spp, through the kernel (4b's graphed
+              render) and through the plain traversal on the card (the eager
+              loop: the plain version syncs, so it cannot be captured), held to
+              the golden-image bars
   6. photon   the photon mapper's main path: render(integrator="photon_mapper") of
               the same height field with the photon_map block of
               tests/scenes/caustic_sphere.json (5e5 emissions x 10 caustic_factor,
@@ -100,17 +112,21 @@ Phases (each prints its own lines; any failed check exits non-zero):
                  (its backward point in a child of its own): the JSON line has
                  bench.py's keys and the card's; its rays/s forward and
                  forward+backward and both traversal counters are finite and above
-                 0, its rays per path within 10% of phase 4's, and both of its
+                 0, its rays per path within 10% of phase 4's, its graphed
+                 forward point 2 launches a bounce step (then the same point
+                 with the step called eagerly: the same rays and bounce steps,
+                 its rays/s beside the bench's), and both of its
                  processes loaded the kernel library this run built from the
                  checkout's source, with nothing new in _build/; the line, the
                  walls and the traversal launches are printed
               b. the 64x64 camera at 4 spp through make_intersect_fn with
                  coherence_key patched to the lane index (the rays traversed in
                  lane order) and through the default, held to each other with
-                 tests/test_distributed.py's bars (rtol 2e-4, atol 2e-5); the
-                 lane-order render's launch 2 (bounce 1's primary rays, 16384)
-                 held to the plain version bit for bit, and its rounds per block
-                 printed beside the sorted render's launch 2
+                 tests/test_distributed.py's bars (rtol 2e-4, atol 2e-5); in
+                 each order, the graphed step's launch 2 (bounce 1's primary
+                 rays, 16384, after the first replay): the lane-order one held to
+                 the plain version bit for bit, and its rounds per block printed
+                 beside the sorted one's
               c. trace() of the 64x64 camera's rays at 1 spp with return_stats: its
                  traversal_steps equal the sum of the primary launches' stats,
                  [candidates summed over blocks, most rounds of a block]
@@ -848,6 +864,89 @@ def device_ns_by_name(prof):
     return by_name
 
 
+def eager_render(scene, idx, cfg, stats):
+    """render()'s path-tracer main path (streamed chunks, per-pixel sums into a
+    box-filtered film) with the bounce step called eagerly, one launch per op,
+    as before the step was graphed: each chunk's state from
+    StreamedTrace.initial, its make_bounce_step step driven in a Python loop
+    (one host sync a bounce), StreamedTrace.output. Adds "rays",
+    "bounce_steps" and "chunks" to `stats`; returns the image as render()."""
+    import numpy as np
+    import torch
+
+    from mcrt_tpu_torch.camera import film as film_mod
+    from mcrt_tpu_torch.integrator import path_tracer as pt
+    from mcrt_tpu_torch.ops import cluster_bvh
+    from mcrt_tpu_torch.render import _add_pixel_sums
+
+    dev = torch.device("cuda", 0)
+    cam = scene.cameras[idx]
+    spp = (cfg.sqrtspp or cam.sqrtspp) ** 2
+    check(film_mod.FilmConfig.from_json(cam.width, cam.height, cam.film).is_pixel_box, "render",
+          "the eager loop sums per pixel: the camera's film must be a box")
+    tables = scene.tables(np.float32, dev)
+    meta = scene.meta()
+    ifn = cluster_bvh.make_intersect_fn(tables, meta, scene.build_cluster_bvh(np.float32, dev))
+    ptcfg = pt.PTConfig(max_bounces=cfg.max_bounces, global_seed=cfg.global_seed)
+    total = cam.width * cam.height * spp
+    chunk = min(cfg.rays_per_chunk, total)
+    check(chunk % spp == 0 and total % chunk % spp == 0, "render", "chunks of whole pixels")
+    film = torch.zeros((cam.height, cam.width, 4), dtype=torch.float32, device=dev)
+    traces = {}
+    for key in ("rays", "bounce_steps", "chunks"):
+        stats[key] = 0
+    for start in range(0, total, chunk):
+        n = min(chunk, total - start)
+        if n not in traces:
+            traces[n] = pt.StreamedTrace(tables, meta, ptcfg, cam, spp, n, min(cfg.lanes, n),
+                                         intersect_fn=ifn, pixel_sums=True)
+        tr = traces[n]
+        st = tr.initial(start)
+        while bool(st.alive.any()):
+            st = tr.step(st)
+            stats["bounce_steps"] += 1
+        sums, rays = tr.output(st)
+        _add_pixel_sums(film, sums, spp, start)
+        stats["rays"] = stats["rays"] + rays
+        stats["chunks"] += 1
+    return film_mod.scan(film).cpu().numpy().astype(np.float64)
+
+
+def graphed_trace(scene, idx, sqrtspp):
+    """The camera's image at sqrtspp^2 spp as one chunk through a StreamedTrace
+    at render()'s default lanes, driven to the end of bounce 1 with
+    traverse_kernel.traverse recorded: bounce 0 runs eagerly (launches 0 and
+    1), the capture records launches 2 and 3 (a bounce's primary and shadow
+    rays) and bounce 1 is its first replay. Launch 2's tensors are the graph's
+    static traversal inputs and outputs, which hold the last replay's values.
+    Returns (trace, recorder); the caller advances and closes the trace."""
+    import numpy as np
+    import torch
+
+    import mcrt_tpu_torch as mt
+    from mcrt_tpu_torch.integrator import path_tracer as pt
+    from mcrt_tpu_torch.ops import cluster_bvh
+    from mcrt_tpu_torch.ops import traverse_kernel as tk
+
+    dev = torch.device("cuda", 0)
+    cam = scene.cameras[idx]
+    n = cam.width * cam.height * sqrtspp ** 2
+    lanes = min(mt.RenderConfig().lanes, n)
+    tables = scene.tables(np.float32, dev)
+    meta = scene.meta()
+    ifn = cluster_bvh.make_intersect_fn(tables, meta, scene.build_cluster_bvh(np.float32, dev))
+    rec = LaunchRecorder(tk, at=(2,))
+    with mock.patch.object(tk, "traverse", rec):
+        tr = pt.StreamedTrace(tables, meta, pt.PTConfig(), cam, sqrtspp ** 2, n, lanes,
+                              intersect_fn=ifn, pixel_sums=True)
+        tr.begin(0)
+        tr.advance()
+        tr.advance()
+    torch.cuda.synchronize()
+    check(tr.graph is not None, "render", "the bounce step was not captured at bounce 1")
+    return tr, rec
+
+
 def grad_phase(scene, cbvh, card):
     """Phase 9: the differentiable path. Returns the traversal's launches over
     9a's train steps (forward and recompute), and 9a's first step: its
@@ -1365,15 +1464,33 @@ def bench_phase(scene, cbvh, card, render_rays_per_path):
     check(fwd["launches"] > 0 and fwd["diag_launches"] > 0 and bwd["launches"] > 0, "bench",
           f"traversal launches forward {fwd['launches']}, diagnostic {fwd['diag_launches']}, "
           f"forward+backward {bwd['launches']}")
+    check(fwd["launches"] == 2 * fwd["bounce_steps"] and fwd["graph_pool_bytes"], "bench",
+          f"the forward point's {fwd['launches']} launches for {fwd['bounce_steps']} graphed bounce "
+          f"steps, graph pool {fwd['graph_pool_bytes']}")
     log("bench", f"python -m mcrt_tpu_torch.bench: wall {wall:.1f} s; forward {fwd['chunks']} chunks of "
         f"{fwd['chunk']} paths through {fwd['lanes']} lanes {fwd['time_s']:.3f} s, {fwd['rays']} rays "
         f"({per_path:.4f} a path, phase 4 {render_rays_per_path:.4f}), {fwd['bounce_steps']} bounce steps, "
-        f"{fwd['launches']} traversal launches; diagnostic {fwd['diag_paths']} paths from path "
+        f"{fwd['launches']} traversal launches, graph pool {fwd['graph_pool_bytes'] / 2**20:.1f} MiB; diagnostic {fwd['diag_paths']} paths from path "
         f"{fwd['diag_first_path']}, {fwd['diag_bounce_steps']} bounce steps, {fwd['diag_launches']} "
         f"launches; forward+backward {bwd['reps']} chunks of {bwd['chunk']} paths through "
         f"{bwd['lanes']} lanes, {bwd['trips']} trips, {bwd['time_s']:.3f} s, {bwd['rays']} rays, "
         f"{bwd['launches']} launches; {launches} launches in all, warm-ups included; kernel library "
         f"{lib.name} in both processes | {card}")
+    # The bench's forward point with the step called eagerly, in turn after the
+    # graphed one: the same 16 chunks of 2^18 paths through 16384 lanes, the
+    # same rays and bounce steps, one host sync a bounce (no warm-up chunk).
+    stats_e = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager_render(scene, 0, mt.RenderConfig(rays_per_chunk=fwd["chunk"], lanes=fwd["lanes"]), stats_e)
+    wall_e = time.perf_counter() - t0
+    rays_e = int(stats_e["rays"])
+    log("bench", f"the forward point eagerly: {stats_e['chunks']} chunks in {wall_e:.3f} s, {rays_e} rays, "
+        f"{rays_e / wall_e / 1e6:.4f} M rays/s, {stats_e['bounce_steps']} bounce steps; graphed (the "
+        f"bench's value) {fwd['time_s']:.3f} s, {res['value'] / 1e6:.4f} M rays/s, {fwd['bounce_steps']} "
+        f"bounce steps | {card}")
+    check(rays_e == fwd["rays"] and stats_e["bounce_steps"] == fwd["bounce_steps"], "bench",
+          "the eager forward point's rays or bounce steps are not the bench's")
 
     # ---- 11b: the intersect in lane order ----
     # coherence_key patched to the lane index: the stable sort keeps the lanes
@@ -1383,11 +1500,10 @@ def bench_phase(scene, cbvh, card, render_rays_per_path):
     ci = len(scene.cameras) - 1
     cfg_s = mt.RenderConfig(sqrtspp=2)
     lane_order = lambda o, d, lo, hi: torch.arange(o.shape[0], device=o.device)
-    recs = {"sorted": LaunchRecorder(tk, at=(2,)), "unsorted": LaunchRecorder(tk, at=(2,))}
+    keys = {"sorted": cluster_bvh.coherence_key, "unsorted": lane_order}
     imgs, walls = {}, {}
-    for name, rec in recs.items():
-        with mock.patch.object(tk, "traverse", rec), mock.patch.object(
-                cluster_bvh, "coherence_key", lane_order if name == "unsorted" else cluster_bvh.coherence_key):
+    for name, key in keys.items():
+        with mock.patch.object(cluster_bvh, "coherence_key", key):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             imgs[name] = mt.render(scene, ci, cfg_s)
@@ -1398,15 +1514,23 @@ def bench_phase(scene, cbvh, card, render_rays_per_path):
         f"{bool((imgs['unsorted'] == imgs['sorted']).all())}; walls {walls['unsorted']:.3f} s and "
         f"{walls['sorted']:.3f} s")
     check(bad == 0, "bench", "the render in lane order and the sorted render disagree")
-    for name, rec in recs.items():
-        check(2 in rec.seen, "bench", f"the {name} render made no launch 2")
-        o, st = rec.seen[2][1], rec.seen[2][3][4].double()
-        log("bench", f"{name} launch 2: {o.shape[0]} rays, {st.shape[0]} blocks, candidates per block "
-            f"mean {float(st[:, 0].mean()):.1f}, rounds per block mean {float(st[:, 1].mean()):.1f} "
-            f"max {int(st[:, 1].max())}, rounds in all {int(st[:, 1].sum())} | {card}")
-    check(recs["unsorted"].seen[2][1].shape[0] == SWITCH_WIDTH ** 2 * 4, "bench",
-          "the unsorted launch is not one ray a path")
-    held_to_plain(tk, recs["unsorted"], "11b unsorted launch", card, phase="bench")
+    # Launch 2 (bounce 1's primary rays) of each order: the captured launch after
+    # its first replay. The patch is in place through the capture, which
+    # freezes the Python of the step.
+    for name, key in keys.items():
+        with mock.patch.object(cluster_bvh, "coherence_key", key):
+            tr, rec = graphed_trace(scene, ci, 2)
+        try:
+            o, st = rec.seen[2][1], rec.seen[2][3][4].double()
+            log("bench", f"{name} launch 2: {o.shape[0]} rays, {st.shape[0]} blocks, candidates per block "
+                f"mean {float(st[:, 0].mean()):.1f}, rounds per block mean {float(st[:, 1].mean()):.1f} "
+                f"max {int(st[:, 1].max())}, rounds in all {int(st[:, 1].sum())} | {card}")
+            if name == "unsorted":
+                check(o.shape[0] == SWITCH_WIDTH ** 2 * 4, "bench", "the unsorted launch is not one ray a path")
+                held_to_plain(tk, rec, "11b unsorted launch", card, phase="bench")
+        finally:
+            tr.close()
+            del tr, rec
 
     # ---- 11c: the traversal statistics ----
     cam_c = scene.cameras[ci]
@@ -1620,15 +1744,41 @@ def main() -> int:
     spp = SQRTSPP ** 2
     cam_rays = cam.width * cam.height * spp
     rays_traced = int(stats["rays"])
-    log("render", f"{cam.width}x{cam.height} {spp} spp, {scene.n_tris} triangles: wall {wall:.3f} s, "
-        f"{cam_rays / wall / 1e6:.4f} M camera rays/s, {rays_traced / wall / 1e6:.4f} M rays/s traced "
-        f"(primary + shadow), kernel launches {launches}, bounce steps (host syncs) "
+    log("render", f"{cam.width}x{cam.height} {spp} spp, {scene.n_tris} triangles, graphed bounce step: "
+        f"wall {wall:.3f} s, {cam_rays / wall / 1e6:.4f} M camera rays/s, {rays_traced / wall / 1e6:.4f} M "
+        f"rays/s traced (primary + shadow), kernel launches {launches}, bounce steps (host syncs) "
         f"{stats['bounce_steps']}, chunks {stats['chunks']} | {card}")
     check(launches > 0, "render", "the traversal kernel was not launched on the main path")
     check(hdr.shape == (cam.height, cam.width, 3), "render", f"bad image shape {hdr.shape}")
     check(bool(np.isfinite(hdr).all()) and float(hdr.min()) >= 0.0, "render", "non-finite or negative")
     check(0.01 < float(hdr.mean()) < 100.0, "render", f"trivial image mean {hdr.mean()}")
     log("render", f"image mean {hdr.mean():.6f} min {hdr.min():.6f} max {hdr.max():.4f}")
+    # The same render with the step called eagerly, then graphed again: the
+    # launches, rays and bounce steps must be the eager loop's, the image
+    # within the bars (the scatter into the sums is atomic).
+    stats_e = {}
+    tk.kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hdr_e = eager_render(scene, 0, cfg, stats_e)
+    wall_e = time.perf_counter() - t0
+    launches_e = tk.kernel.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mt.render(scene, 0, cfg)
+    torch.cuda.synchronize()
+    wall_g2 = time.perf_counter() - t0
+    bad, worst = images_apart(hdr, hdr_e)
+    log("render", f"eager loop, same render: wall {wall_e:.3f} s, kernel launches {launches_e}, bounce "
+        f"steps {stats_e['bounce_steps']}, rays {int(stats_e['rays'])}; graphed against eager: {bad} "
+        f"elements outside rtol {IMG_RTOL} atol {IMG_ATOL}, largest |d| {worst:.3g}; walls in turns "
+        f"(graphed, eager, graphed) {wall:.3f}, {wall_e:.3f}, {wall_g2:.3f} s | {card}")
+    check(launches == launches_e == 2 * stats["bounce_steps"], "render",
+          f"graphed launches {launches}, eager {launches_e}, bounce steps {stats['bounce_steps']}")
+    check(stats["bounce_steps"] == stats_e["bounce_steps"] and rays_traced == int(stats_e["rays"]),
+          "render", "the graphed render's bounce steps or rays are not the eager loop's")
+    check(bad == 0, "render", "the graphed and eager renders disagree")
+    del hdr_e
     if parent is not None:   # the same render through the parent's kernel, in turns
         walls = {"parent's": [], "this": [wall]}
         old = lambda cb, o, d: parent_traverse(parent, cb, o, d)[0]
@@ -1643,45 +1793,92 @@ def main() -> int:
             f"{who} kernel {', '.join(f'{w:.3f}' for w in ws)} s" for who, ws in walls.items())
             + f" | {card}")
 
-    # Kernel share of device time, from a profiled 1-spp render of the same scene.
+    # Device-busy share and the kernel's share of device time, from profiled
+    # 1-spp renders of the same scene, graphed and eager. The kernel events
+    # counted beside the launches show whether the profiler sees inside replays.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cfg1 = mt.RenderConfig(max_bounces=64, sqrtspp=1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        mt.render(scene, 0, cfg1)
+    for how, run in (("graphed", lambda st: mt.render(scene, 0, cfg1, stats=st)),
+                     ("eager", lambda st: eager_render(scene, 0, cfg1, st))):
+        st1 = {}
+        tk.kernel.launches = 0
         torch.cuda.synchronize()
-        wall1 = time.perf_counter() - t1
-    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)
-    dev_us = sum(dev_time(e) for e in dev_events)
-    kern_us = sum(dev_time(e) for e in dev_events if "traverse_kernel" in e.key)
-    share = "not measured (the profiler recorded no device time)"
-    if dev_us > 0:
-        share = (f"1-spp profiled render: wall {wall1:.3f} s (profiler on), device busy "
-                 f"{dev_us / 1e6:.3f} s ({100 * dev_us / 1e6 / wall1:.1f}% of wall), traversal "
-                 f"kernel {kern_us / 1e6:.3f} s = {100 * kern_us / dev_us:.1f}% of device time")
-        for e in sorted(dev_events, key=lambda e: -dev_time(e))[:10]:
-            log("render", f"  device time {dev_time(e) / 1e3:10.1f} ms x{e.count:7d}  {e.key[:90]}")
-    log("render", f"kernel share: {share}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            run(st1)
+            torch.cuda.synchronize()
+            wall1 = time.perf_counter() - t1
+        dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)
+        dev_us = sum(dev_time(e) for e in dev_events)
+        kern = [e for e in dev_events if "traverse_kernel" in e.key]
+        kern_us = sum(dev_time(e) for e in kern)
+        share = "not measured (the profiler recorded no device time)"
+        if dev_us > 0:
+            share = (f"wall {wall1:.3f} s (profiler on), device busy {dev_us / 1e6:.3f} s "
+                     f"({100 * dev_us / 1e6 / wall1:.1f}% of wall), traversal kernel {kern_us / 1e6:.3f} s "
+                     f"= {100 * kern_us / dev_us:.1f}% of device time, {sum(e.count for e in kern)} "
+                     f"traversal kernel events for {tk.kernel.launches} launches counted, "
+                     f"{st1['bounce_steps']} bounce steps")
+            for e in sorted(dev_events, key=lambda e: -dev_time(e))[:6]:
+                log("render", f"  {how}: device time {dev_time(e) / 1e3:10.1f} ms x{e.count:7d}  {e.key[:80]}")
+        log("render", f"profiled 1-spp render, {how}: {share} | {card}")
+        del prof, dev_events, kern
 
-    # ---- 5. kernel render against plain render ----
-    # The same scene (and BVH) through a second, 64x64 camera.
+    # ---- 4b. graphed against eager at 64x64, 4 spp; a replayed launch ----
+    # The same scene (and BVH) through a second, 64x64 camera (also phase 5's).
     scene.cameras.append(dataclasses.replace(cam, width=64, height=64))
     cfg_s = mt.RenderConfig(sqrtspp=2)
-    img_k = mt.render(scene, 1, cfg_s)
+    stats_g, stats_e = {}, {}
+    img_k, wall_k, launches_k, _ = run_counted(tk, lambda: mt.render(scene, 1, cfg_s, stats=stats_g))
+    img_e, wall_e, launches_e, _ = run_counted(tk, lambda: eager_render(scene, 1, cfg_s, stats_e))
+    bad, worst = images_apart(img_k, img_e)
+    log("render", f"4b 64x64 4 spp graphed vs eager: {bad} elements outside rtol {IMG_RTOL} atol "
+        f"{IMG_ATOL}, largest |d| {worst:.3g}; rays {int(stats_g['rays'])} and {int(stats_e['rays'])}, "
+        f"bounce steps {stats_g['bounce_steps']} and {stats_e['bounce_steps']}, launches {launches_k} and "
+        f"{launches_e}, walls {wall_k:.3f} and {wall_e:.3f} s | {card}")
+    check(bad == 0, "render", "4b: the graphed and eager renders disagree")
+    check(int(stats_g["rays"]) == int(stats_e["rays"]) and stats_g["bounce_steps"] == stats_e["bounce_steps"],
+          "render", "4b: the graphed render's rays or bounce steps are not the eager loop's")
+    check(launches_k == launches_e == 2 * stats_g["bounce_steps"], "render",
+          f"4b: launches {launches_k} graphed, {launches_e} eager, for {stats_g['bounce_steps']} bounce steps")
+    # One chunk driven bounce by bounce: the captured primary launch (launch 2)
+    # after replay 1 (bounce 1) and after replay 3 (bounce 3, more dead lanes
+    # parked among the rays), each held to traverse_plain on the graph's
+    # static inputs.
+    tk.kernel.launches = tk.kernel.captured = 0
+    tr, rec = graphed_trace(scene, 1, 2)
+    try:
+        check((tk.kernel.launches, tk.kernel.captured) == (4, 2), "render",
+              f"4b: after bounce 1, {tk.kernel.launches} launches counted and {tk.kernel.captured} "
+              "captured (want 2 eager + 2 replayed, and 2)")
+        log("render", f"4b graph of one bounce step at {tr.regen.lanes} lanes: pool "
+            f"{tr.graph.pool_bytes / 2**20:.1f} MiB reserved, {tr.graph.per_replay[0][1]} traversal "
+            f"launches a replay | {card}")
+        held_to_plain(tk, rec, "4b replay 1 (bounce 1)", card, phase="render")
+        tr.advance()
+        tr.advance()
+        torch.cuda.synchronize()
+        held_to_plain(tk, rec, "4b replay 3 (bounce 3)", card, phase="render")
+    finally:
+        tr.close()
+        del tr, rec
+
+    # ---- 5. kernel render against plain render ----
+    # The plain traversal syncs the host, so it cannot be captured: its render
+    # runs the eager loop; the kernel's is 4b's graphed render.
     with mock.patch.object(tk, "traverse", tk.traverse_plain):
-        img_p = mt.render(scene, 1, cfg_s)
+        img_p = eager_render(scene, 1, cfg_s, {})
     fin = lambda x: np.clip(image_mod.finalize(x, scene.cameras[1].image), 0.0, 1.0)
     a, b = fin(img_k), fin(img_p)
     diff = np.abs(a - b)
     per_channel = np.abs(a.mean(axis=(0, 1)) - b.mean(axis=(0, 1)))
     p95 = float(np.percentile(diff, 95))
-    log("compare", f"64x64 4 spp kernel vs plain: per-channel mean diff {per_channel.max():.3g}, "
-        f"p95 {p95:.3g}, mean {diff.mean():.3g}, max {diff.max():.3g}, hdr identical "
-        f"{bool((img_k == img_p).all())}")
+    log("compare", f"64x64 4 spp kernel (graphed) vs plain (eager): per-channel mean diff "
+        f"{per_channel.max():.3g}, p95 {p95:.3g}, mean {diff.mean():.3g}, max {diff.max():.3g}, hdr "
+        f"identical {bool((img_k == img_p).all())}")
     check(bool(np.all(per_channel < 0.02)) and p95 < 0.25 and diff.mean() < 0.05, "compare",
           "kernel render and plain render disagree")
 

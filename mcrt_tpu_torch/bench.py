@@ -103,8 +103,10 @@ def bench_ours(scene: Scene, device=None, chunk_lg: int = CHUNK_LG, lanes: int =
     """Forward rays/s of the streamed path tracer over the scene's first camera
     at its spp: one warm-up chunk, then every whole chunk of the image timed,
     with the ray counts kept on the device and one synchronisation at the end
-    inside the timer. Then a 2^diag_lg-path trace from the middle row, whose
-    stats give the traversal counters."""
+    inside the timer. One StreamedTrace runs every chunk, as in render(): on
+    the card the warm-up captures its bounce step and the timed chunks replay
+    it. Then a 2^diag_lg-path trace from the middle row, whose stats give the
+    traversal counters."""
     device = resolve_device(device)
     cam = scene.cameras[0]
     spp = cam.sqrtspp ** 2
@@ -119,27 +121,33 @@ def bench_ours(scene: Scene, device=None, chunk_lg: int = CHUNK_LG, lanes: int =
     chunk = min(1 << chunk_lg, total)
     stats = {}
 
+    trace = pt.StreamedTrace(tables, meta, cfg, cam, spp, chunk, min(lanes, chunk),
+                             intersect_fn=intersect_fn, pixel_sums=True)
+
     def run(start, film):
-        sums, rays = pt.trace_streamed(tables, meta, cfg, cam, spp, start, chunk, min(lanes, chunk),
-                                       intersect_fn=intersect_fn, pixel_sums=True, stats=stats)
+        sums, rays = trace(start, stats)
         _add_pixel_sums(film, sums, spp, start)
         return rays
 
     film = torch.zeros((cam.height, cam.width, 4), dtype=torch.float32, device=device)
-    run(0, film)                                    # warm-up
-    _sync(device)
-    film.zero_()
-    stats.clear()
-    launches = tk.kernel.launches
-    ray_counts = []
-    done = 0
-    t0 = time.perf_counter()
-    while done + chunk <= total:
-        ray_counts.append(run(done, film))          # stays on the device
-        done += chunk
-    _sync(device)
-    dt = time.perf_counter() - t0
-    launches = tk.kernel.launches - launches
+    try:
+        run(0, film)                                # warm-up
+        _sync(device)
+        film.zero_()
+        stats.clear()
+        launches = tk.kernel.launches
+        ray_counts = []
+        done = 0
+        t0 = time.perf_counter()
+        while done + chunk <= total:
+            ray_counts.append(run(done, film))      # stays on the device
+            done += chunk
+        _sync(device)
+        dt = time.perf_counter() - t0
+        launches = tk.kernel.launches - launches
+        pool_bytes = None if trace.graph is None else trace.graph.pool_bytes
+    finally:
+        trace.close()
     total_rays = int(torch.stack(ray_counts).sum())
     image_mean = float(film[..., :3].sum() / (3 * film[..., 3].sum()).clamp(min=1))
     if not np.isfinite(image_mean) or image_mean <= 0.0:
@@ -154,8 +162,8 @@ def bench_ours(scene: Scene, device=None, chunk_lg: int = CHUNK_LG, lanes: int =
     candidates, rounds = (int(x) for x in st["traversal_steps"])
     _report("forward", device=str(device), chunks=len(ray_counts), chunk=chunk,
             lanes=min(lanes, chunk), time_s=dt, rays=total_rays, bounce_steps=stats["bounce_steps"],
-            launches=launches, image_mean=image_mean, diag_paths=n_diag, diag_first_path=first,
-            diag_bounce_steps=st["bounce_steps"], diag_launches=tk.kernel.launches - diag_launches)
+            launches=launches, graph_pool_bytes=pool_bytes, image_mean=image_mean,
+            diag_paths=n_diag, diag_first_path=first, diag_bounce_steps=st["bounce_steps"], diag_launches=tk.kernel.launches - diag_launches)
     return {
         "paths": done,
         "rays": total_rays,

@@ -8,13 +8,17 @@ RR) is a masked lane; two scene intersections per bounce (primary + shadow).
 
 The forward bounce loop is a Python `while` whose condition reads one flag
 from the device once per bounce (the JAX package's `lax.while_loop`);
-`trace_streamed` counts those host synchronisations. The differentiable loops
-(`trace(differentiable=True)`, `trace_streamed(fixed_trips=N)`) run a fixed
-number of trips with no host sync (the JAX package's `lax.scan`), each trip
-rematerialised in the backward pass by `torch.utils.checkpoint` (its
-`jax.checkpoint`). Gradients flow through the continuous BSDF, pdf and
-throughput chain; the Sobol decisions are integer functions of the path's
-indices, and the traversal is detached (ops/cluster_bvh.make_intersect_fn).
+`trace_streamed` counts those host synchronisations. Its forward run
+(`StreamedTrace`) captures the bounce step once as a CUDA graph on the card
+and replays it each bounce, as the JAX package runs its chunk as one
+compiled program (`jax.jit`); on the CPU it calls the step eagerly. The
+differentiable loops (`trace(differentiable=True)`,
+`trace_streamed(fixed_trips=N)`) run a fixed number of trips with no host
+sync (the JAX package's `lax.scan`), each trip rematerialised in the
+backward pass by `torch.utils.checkpoint` (its `jax.checkpoint`).
+Gradients flow through the continuous BSDF, pdf and throughput chain; the
+Sobol decisions are integer functions of the path's indices, and the
+traversal is detached (ops/cluster_bvh.make_intersect_fn).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from ..camera import camera as cam_mod
 from ..ops import intersect as isect
 from ..sampling import sobol
 from ..scene.loader import SceneMeta, SceneTables
+from ..utils import cuda_graph
 from . import common
 from .common import PARK_DIRECTION, PARK_DISTANCE
 
@@ -71,6 +76,7 @@ class PathState(NamedTuple):
     trav_steps: torch.Tensor        # (2,) int64: the primary intersects' Hit.steps, summed
     path_id: torch.Tensor           # (R,) int32 local path index
     next_path: torch.Tensor         # scalar int64: next unassigned path (streamed)
+    start: torch.Tensor             # scalar int64: global index of local path 0 (streamed)
     out_rad: torch.Tensor           # finished radiance (streamed): (n_out + 1, 3), last row =
                                     # dump, or (G, L, 3) per generation and lane when strided
     pixel_index: torch.Tensor       # (R,) int64 holding uint32
@@ -110,8 +116,7 @@ class RegenCfg(NamedTuple):
     consts: object           # camera.CameraConsts on the render device
     width: int
     spp: int
-    start: int               # global path index of local path 0
-    n_paths: int             # paths this call streams
+    n_paths: int             # paths a chunk streams (its first is PathState.start)
     lanes: int
     strided: bool
     pixel_sums: bool         # accumulate per-pixel sums instead of per-path radiance (dynamic)
@@ -248,7 +253,7 @@ def make_bounce_step(
                 has_new = died_now & (new_local < regen.n_paths)
                 next_path = next_path + died_i.sum()
                 next_id = new_local.to(torch.int32)
-            lin = regen.start + torch.clamp(new_local, max=regen.n_paths - 1)
+            lin = st.start + torch.clamp(new_local, max=regen.n_paths - 1)
             pix = torch.div(lin, regen.spp, rounding_mode="floor")
             fresh = cam_mod.generate_rays(
                 regen.cam, pix % regen.width, torch.div(pix, regen.width, rounding_mode="floor"),
@@ -290,6 +295,7 @@ def make_bounce_step(
             trav_steps=trav_steps,
             path_id=path_id,
             next_path=next_path,
+            start=st.start,
             out_rad=out_rad,
             pixel_index=pixel_index,
             sample_index=sample_index,
@@ -316,7 +322,7 @@ def make_bounce_step(
 
 
 def _init_state(tables, cfg, origin, direction, pixel_index, sample_index, alive,
-                path_id, next_path, out_rad) -> PathState:
+                path_id, next_path, start, out_rad) -> PathState:
     dtype = origin.dtype
     L = origin.shape[0]
     dev = origin.device
@@ -329,6 +335,7 @@ def _init_state(tables, cfg, origin, direction, pixel_index, sample_index, alive
         trav_steps=torch.zeros((2,), dtype=torch.int64, device=dev),
         path_id=path_id,
         next_path=next_path,
+        start=start,
         out_rad=out_rad,
         pixel_index=pixel_index,
         sample_index=sample_index,
@@ -411,6 +418,7 @@ def trace(
         sobol.as_u32(sample_index, dev), torch.ones((R,), dtype=torch.bool, device=dev),
         torch.arange(R, dtype=torch.int32, device=dev),
         torch.full((), R, dtype=torch.int64, device=dev),
+        torch.zeros((), dtype=torch.int64, device=dev),
         torch.zeros((1, 3), dtype=origin.dtype, device=dev))
     if differentiable:
         st = _run_trips(step, st, cfg.max_bounces, remat)
@@ -428,6 +436,128 @@ def trace(
             stats["traversal_steps"] = st.trav_steps
         return st.radiance, stats
     return st.radiance
+
+
+class StreamedTrace:
+    """Streamed traces of chunks of `n_paths` camera paths through `lanes`
+    lanes: the bounce step is built once and serves every chunk of that size,
+    since a chunk's first path rides in the state (PathState.start, a device
+    scalar) and not in the step (the JAX package passes its chunk's `start` as
+    a traced scalar for the same reason). A chunk of another size needs its
+    own. Arguments as trace_streamed's; `fixed` marks a fixed-trip run.
+
+    Calling it with a chunk's first path runs the forward trace of that chunk
+    to the end, one host sync per bounce, and returns trace_streamed's results.
+    On a CUDA device the first bounce runs eagerly (it builds the kernels and
+    settles the allocator) and leaves its result in the static state buffers;
+    the second captures one bounce step over those buffers as a CUDA graph
+    (utils/cuda_graph.CapturedStep); from then on, in this chunk and the later
+    ones, a bounce is one replay. A capture that fails raises. On the CPU every
+    bounce calls the step eagerly. `close()` releases the graph and its pool.
+
+    begin(start) and advance() are the same run one bounce at a time, and
+    `state` is the state after the last bounce (on the card, the static
+    buffers); initial(start), `step` and output(state) are the pieces of an
+    eager loop."""
+
+    def __init__(self, tables: SceneTables, meta: SceneMeta, cfg: PTConfig, cam, spp: int,
+                 n_paths: int, lanes: int, intersect_fn: Callable | None = None,
+                 pixel_sums: bool = False, strided: bool = False, fixed: bool = False):
+        if pixel_sums and (strided or n_paths % spp):
+            raise ValueError("pixel_sums needs the dynamic mode and an spp-aligned path count")
+        self.tables, self.cfg, self.cam = tables, cfg, cam
+        dtype = tables.tri_v0.dtype
+        if intersect_fn is None:
+            intersect_fn = lambda o, d: isect.intersect_brute(tables, meta, o, d)
+        self.regen = RegenCfg(cam=cam, consts=cam_mod.camera_consts(cam, dtype, tables.tri_v0.device),
+                              width=cam.width, spp=spp, n_paths=n_paths, lanes=lanes,
+                              strided=strided, pixel_sums=pixel_sums, fixed=fixed)
+        self.step = make_bounce_step(tables, meta, cfg, intersect_fn, regen=self.regen)
+        self.n_out = (n_paths // spp) if pixel_sums else n_paths
+        self.state: PathState | None = None
+        self.graph = None          # the CapturedStep, once captured
+        self._warm = False         # the first bounce ran eagerly
+
+    def initial(self, start: int) -> PathState:
+        """A new PathState for the chunk whose first path is `start`: the
+        first `lanes` paths loaded, the output buffer zero."""
+        r = self.regen
+        dtype, dev = self.tables.tri_v0.dtype, self.tables.tri_v0.device
+        L, spp, cam = r.lanes, r.spp, self.cam
+        local0 = torch.arange(L, dtype=torch.int64, device=dev)
+        live0 = local0 < r.n_paths
+        lin0 = int(start) + torch.clamp(local0, max=r.n_paths - 1)
+        pix0 = torch.div(lin0, spp, rounding_mode="floor")
+        first = cam_mod.generate_rays(
+            cam, pix0 % cam.width, torch.div(pix0, cam.width, rounding_mode="floor"),
+            lin0 % spp, self.cfg.global_seed, dtype, consts=r.consts,
+        )
+        G = -(-r.n_paths // L)
+        return _init_state(
+            self.tables, self.cfg, torch.where(live0[:, None], first.origin, PARK_DISTANCE),
+            first.direction, first.pixel_index, first.sample_index, live0,
+            torch.zeros_like(local0, dtype=torch.int32) if r.strided else local0.to(torch.int32),
+            torch.full((), min(L, r.n_paths), dtype=torch.int64, device=dev),
+            torch.full((), int(start), dtype=torch.int64, device=dev),
+            torch.zeros((G, L, 3) if r.strided else (self.n_out + 1, 3), dtype=dtype, device=dev))
+
+    def output(self, st: PathState):
+        """(radiance, rays traced) of a chunk's final state, the lanes still
+        alive flushed into the radiance (none after a drained run)."""
+        r = self.regen
+        if r.strided:
+            out = st.out_rad + torch.where(
+                _generation_rows(st.out_rad, st.alive, st.path_id), st.radiance, 0.0)
+            return out.reshape(-1, 3)[:r.n_paths], st.ray_count
+        if not r.fixed:
+            return st.out_rad[:self.n_out], st.ray_count
+        tgt = torch.div(st.path_id, r.spp, rounding_mode="floor") if r.pixel_sums else st.path_id
+        slot = torch.where(st.alive, tgt, torch.full_like(tgt, self.n_out)).to(torch.int64)
+        out = st.out_rad.index_add(
+            0, slot, torch.where(st.alive[:, None], st.radiance, torch.zeros_like(st.radiance)))
+        return out[:self.n_out], st.ray_count
+
+    def begin(self, start: int):
+        """Load the chunk whose first path is `start` (on the card, into the
+        static buffers, which the first chunk allocates)."""
+        init = self.initial(start)
+        if init.origin.device.type != "cuda":
+            self.state = init
+        elif self.state is None:
+            # Distinct buffers: _init_state shares one zero tensor among fields.
+            self.state = PathState(*(x.clone() for x in init))
+        else:
+            cuda_graph.copy_into(self.state, init)
+
+    def advance(self):
+        """One bounce step of the loaded chunk."""
+        if self.state.origin.device.type != "cuda":
+            self.state = self.step(self.state)
+        elif self.graph is not None:
+            self.graph.replay()
+        elif not self._warm:
+            cuda_graph.copy_into(self.state, self.step(self.state))
+            self._warm = True
+        else:
+            self.graph = cuda_graph.CapturedStep(self.step, self.state)
+            self.graph.replay()
+
+    def __call__(self, start: int, stats: dict | None = None):
+        self.begin(start)
+        steps = 0
+        while bool(self.state.alive.any()):   # one host sync per bounce
+            self.advance()
+            steps += 1
+        if stats is not None:
+            stats["bounce_steps"] = stats.get("bounce_steps", 0) + steps
+        out, rays = self.output(self.state)
+        return out.clone(), rays.clone()   # the next chunk reuses the buffers
+
+    def close(self):
+        """Release the graph and its memory pool (with the static buffers)."""
+        if self.graph is not None:
+            self.graph.close()
+        self.graph, self.state, self._warm = None, None, False
 
 
 def trace_streamed(
@@ -452,67 +582,29 @@ def trace_streamed(
     buffer and loads another path (see RegenCfg for the two modes).
 
     fixed_trips: None (the forward render) runs until every path drained, one
-    host sync per bounce. An int runs exactly that many steps with no host
-    sync, which autograd can reverse: the differentiable wavefront, each trip
-    checkpointed when `remat`. Paths still in flight when the trips run out
-    add their partial radiance (truncation, as at max_bounces); paths never
-    started add nothing. strided: the assignment mode, by default lane-strided
-    exactly when fixed_trips is given; pixel_sums needs the dynamic mode.
+    host sync per bounce, through a one-shot StreamedTrace (on the card, a
+    captured bounce step). An int runs exactly that many steps with no host
+    sync, eagerly, which autograd can reverse: the differentiable wavefront,
+    each trip checkpointed when `remat`. Paths still in flight when the trips
+    run out add their partial radiance (truncation, as at max_bounces); paths
+    never started add nothing. strided: the assignment mode, by default
+    lane-strided exactly when fixed_trips is given; pixel_sums needs the
+    dynamic mode.
 
     Returns (radiance, rays traced): radiance is (n_paths, 3) per path, or
     (n_paths // spp, 3) per-pixel sums with pixel_sums. If `stats` is a dict,
     the steps run are added to its "bounce_steps" (host syncs of a draining
     run; a fixed-trip run syncs never)."""
-    dtype = tables.tri_v0.dtype
-    dev = tables.tri_v0.device
-    if intersect_fn is None:
-        intersect_fn = lambda o, d: isect.intersect_brute(tables, meta, o, d)
     if strided is None:
         strided = fixed_trips is not None
-    if pixel_sums and (strided or n_paths % spp):
-        raise ValueError("pixel_sums needs the dynamic mode and an spp-aligned path count")
-    L = lanes
-    G = -(-n_paths // L)
-    n_out = (n_paths // spp) if pixel_sums else n_paths
-    consts = cam_mod.camera_consts(cam, dtype, dev)
-    regen = RegenCfg(cam=cam, consts=consts, width=cam.width, spp=spp, start=int(start),
-                     n_paths=n_paths, lanes=L, strided=strided, pixel_sums=pixel_sums,
-                     fixed=fixed_trips is not None)
-    step = make_bounce_step(tables, meta, cfg, intersect_fn, regen=regen)
-
-    local0 = torch.arange(L, dtype=torch.int64, device=dev)
-    live0 = local0 < n_paths
-    lin0 = int(start) + torch.clamp(local0, max=n_paths - 1)
-    pix0 = torch.div(lin0, spp, rounding_mode="floor")
-    first = cam_mod.generate_rays(
-        cam, pix0 % cam.width, torch.div(pix0, cam.width, rounding_mode="floor"),
-        lin0 % spp, cfg.global_seed, dtype, consts=consts,
-    )
-    st = _init_state(
-        tables, cfg, torch.where(live0[:, None], first.origin, PARK_DISTANCE), first.direction,
-        first.pixel_index, first.sample_index, live0,
-        torch.zeros_like(local0, dtype=torch.int32) if strided else local0.to(torch.int32),
-        torch.full((), min(L, n_paths), dtype=torch.int64, device=dev),
-        torch.zeros((G, L, 3) if strided else (n_out + 1, 3), dtype=dtype, device=dev))
-    if fixed_trips is not None:
-        st = _run_trips(step, st, fixed_trips, remat)
-        steps = fixed_trips
-    else:
-        steps = 0
-        while bool(st.alive.any()):   # one host sync per bounce
-            st = step(st)
-            steps += 1
-    if stats is not None:
-        stats["bounce_steps"] = stats.get("bounce_steps", 0) + steps
-    # Flush the lanes still alive (none after a drained loop).
-    if strided:
-        out = st.out_rad + torch.where(
-            _generation_rows(st.out_rad, st.alive, st.path_id), st.radiance, 0.0)
-        return out.reshape(G * L, 3)[:n_paths], st.ray_count
+    run = StreamedTrace(tables, meta, cfg, cam, spp, n_paths, lanes, intersect_fn=intersect_fn,
+                        pixel_sums=pixel_sums, strided=strided, fixed=fixed_trips is not None)
     if fixed_trips is None:
-        return st.out_rad[:n_out], st.ray_count
-    tgt = torch.div(st.path_id, spp, rounding_mode="floor") if pixel_sums else st.path_id
-    slot = torch.where(st.alive, tgt, torch.full_like(tgt, n_out)).to(torch.int64)
-    out = st.out_rad.index_add(
-        0, slot, torch.where(st.alive[:, None], st.radiance, torch.zeros_like(st.radiance)))
-    return out[:n_out], st.ray_count
+        try:
+            return run(start, stats)
+        finally:
+            run.close()
+    st = _run_trips(run.step, run.initial(start), fixed_trips, remat)
+    if stats is not None:
+        stats["bounce_steps"] = stats.get("bounce_steps", 0) + fixed_trips
+    return run.output(st)

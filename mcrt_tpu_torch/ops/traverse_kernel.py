@@ -31,6 +31,13 @@ of FP32 fused multiply-adds; with float32 tables the plain version computes
 the same fused multiply-adds exactly (`_fma`), so on the card the two agree bit
 for bit, stats included. The wrapper sends CUDA tensors to the kernel and CPU
 tensors to the plain version, and raises for anything else.
+
+`kernel.launches` counts the kernel's launches that ran. A launch made while
+the stream is captured into a CUDA graph runs nothing and is counted in
+`kernel.captured` instead; each replay of the graph adds the launches it holds
+(utils/cuda_graph.CapturedStep). The forward render's graphed bounce step
+holds two, so a render counts two launches a bounce step, as an eager loop
+does.
 """
 from __future__ import annotations
 
@@ -43,6 +50,8 @@ import subprocess
 
 import torch
 
+from ..utils.cuda_graph import LaunchCounter
+
 BIG = 3.4e38  # slightly under f32 max: "no hit" sentinel
 BLOCK = 256   # rays per block (K), as the TPU kernel's K; the CUDA block has 2 x 256 + 32 threads
 TILE = 1024   # clusters per slab of the plain version's entry-distance matrix
@@ -54,13 +63,13 @@ _BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
 _ERR_SMEM = -1  # mcrt_traverse: the record buffers do not fit in shared memory
 
 
-class _Kernel:
-    """The built CUDA library (loaded at first use) and its launch count."""
+class _Kernel(LaunchCounter):
+    """The built CUDA library (loaded at first use) and its launch counts."""
 
     def __init__(self):
+        super().__init__()
         self.lib = None
         self.build_log = ""
-        self.launches = 0
 
 
 kernel = _Kernel()
@@ -211,7 +220,7 @@ def _launch(cbvh, origin, direction, stamp):
         raise ValueError(f"traverse: two records of {Sp} triangles do not fit in shared memory")
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: CUDA error {err}")
-    kernel.launches += 1
+    kernel.count()
     out = (*_unpad(R, t, tid, u, v), stats)
     return (*out, cycles) if stamp else out
 

@@ -5,8 +5,10 @@ source/camera/camera.cpp:101-181): the (pixel, sample) space is split into
 chunks of `rays_per_chunk` paths; each chunk runs the path tracer and
 accumulates into a film carried across chunks on the device. With
 `streamed=True` (the default, the main path) a chunk's paths stream through
-`lanes` persistent lanes (`path_tracer.trace_streamed`), and under the box
-filter at radius 0.5 the per-pixel sums go straight into the film rows.
+`lanes` persistent lanes (`path_tracer.StreamedTrace`, one per chunk size for
+the whole render: on the card its bounce step is captured once as a CUDA graph
+and replayed every bounce of every chunk), and under the box filter at radius
+0.5 the per-pixel sums go straight into the film rows.
 `integrator="photon_mapper"` first builds the photon maps (or loads them from
 the checkpoint directory), then runs the photon eye pass over the same chunks.
 """
@@ -76,14 +78,16 @@ def _add_pixel_sums(film_acc, sums, spp, start):
     return film_acc
 
 
-def _chunk_streamed(tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, lanes,
+def _chunk_streamed(traces, tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, lanes,
                     start, n, film_acc, stats):
-    """Paths [start, start+n) through trace_streamed, accumulated into film_acc."""
+    """Paths [start, start+n) through the StreamedTrace of n-path chunks, made
+    at the first chunk of that size and kept in `traces`, accumulated into
+    film_acc."""
     use_px_sums = film_cfg.is_pixel_box and n % spp == 0
-    radiance, rays = pt.trace_streamed(
-        tables, meta, ptcfg, cam, spp, start, n, min(lanes, n),
-        intersect_fn=intersect_fn, pixel_sums=use_px_sums, stats=stats,
-    )
+    if n not in traces:
+        traces[n] = pt.StreamedTrace(tables, meta, ptcfg, cam, spp, n, min(lanes, n),
+                                     intersect_fn=intersect_fn, pixel_sums=use_px_sums)
+    radiance, rays = traces[n](start, stats)
     stats["rays"] = stats.get("rays", 0) + rays
     if use_px_sums:
         return _add_pixel_sums(film_acc, radiance, spp, start)
@@ -204,6 +208,7 @@ def render(
     if cfg.integrator not in ("path_tracer", "photon_mapper"):
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
     device = resolve_device(device)
+    traces = {}   # the streamed path tracer's StreamedTrace per chunk size
     dtype = torch_dtype(cfg.dtype)
     stats = {} if stats is None else stats
     cam = scene.cameras[camera_idx]
@@ -234,7 +239,7 @@ def render(
         ptcfg = pt.PTConfig(max_bounces=cfg.max_bounces, global_seed=cfg.global_seed)
         if cfg.streamed:
             run_chunk = lambda start, n, acc: _chunk_streamed(
-                tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, cfg.lanes,
+                traces, tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, cfg.lanes,
                 start, n, acc, stats)
         else:
             run_chunk = lambda start, n, acc: _chunk_plain(
@@ -277,24 +282,28 @@ def render(
     recent = [(last_ckpt, done)]
     stats["chunks"] = 0
     with _profiler(cfg.profile_dir, device):
-        while done < total:
-            n = min(chunk, total - done)
-            film_acc = run_chunk(done, n, film_acc)
-            done += n
-            stats["chunks"] += 1
-            if ckpt_path is not None and time.monotonic() - last_ckpt > checkpoint_every_s:
-                save_ckpt()
-                last_ckpt = time.monotonic()
-            if verbose:
-                if film_acc.is_cuda:
-                    torch.cuda.synchronize(film_acc.device)
-                now = time.monotonic()
-                recent = (recent + [(now, done)])[-32:]
-                dt = now - recent[0][0]
-                rate = (done - recent[0][1]) / dt if dt > 0 else 0.0
-                eta = (total - done) / rate if rate > 0 else float("inf")
-                print(f"\r{done}/{total} camera rays | {rate / 1e6:.2f} M rays/s | "
-                      f"ETA {eta:.0f}s   ", end="", flush=True)
+        try:
+            while done < total:
+                n = min(chunk, total - done)
+                film_acc = run_chunk(done, n, film_acc)
+                done += n
+                stats["chunks"] += 1
+                if ckpt_path is not None and time.monotonic() - last_ckpt > checkpoint_every_s:
+                    save_ckpt()
+                    last_ckpt = time.monotonic()
+                if verbose:
+                    if film_acc.is_cuda:
+                        torch.cuda.synchronize(film_acc.device)
+                    now = time.monotonic()
+                    recent = (recent + [(now, done)])[-32:]
+                    dt = now - recent[0][0]
+                    rate = (done - recent[0][1]) / dt if dt > 0 else 0.0
+                    eta = (total - done) / rate if rate > 0 else float("inf")
+                    print(f"\r{done}/{total} camera rays | {rate / 1e6:.2f} M rays/s | "
+                          f"ETA {eta:.0f}s   ", end="", flush=True)
+        finally:
+            for t in traces.values():   # the graphs and their pools
+                t.close()
     if verbose:
         print()
     save_ckpt()
