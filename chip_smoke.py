@@ -61,28 +61,42 @@ Phases (each prints its own lines; any failed check exits non-zero):
   8. golden   tests/scenes/caustic_sphere.json photon-rendered at 48x48, 64 spp,
               2e5 emissions, against the C++ reference's
               tests/goldens/caustic_sphere_48_s8.tga with tests/test_e2e_golden.py's bars
-  9. grad     the differentiable path on the height field, float32:
+  9. grad     the differentiable path on the height field, float32; on the card
+              each trip replays two captured CUDA graphs (utils/cuda_graph.GraphedTrip:
+              G_f the trip, G_b its recompute plus backward), captured at a loop's
+              first call:
               a. three plain SGD steps of parallel.sharding.train_step(with_bvh=True)
                  at 512x512, 1 spp, max_bounces 64, from perturbed material tables
-                 toward a target rendered at the scene's own; each step's forward and
-                 backward run under CUDA's sync debug mode set to error, and print the
-                 loss, the forward and backward times (CUDA events), the traversal
-                 launches of the forward and of the backward's recompute, and the
-                 peak memory; the loss and gradients must be finite, the reflectance
-                 gradient nonzero, and the loss must fall; three of the first step's
-                 traversal launches (262,144 rays, 1024 blocks) held to the plain
-                 version, bit for bit as in phase 3
+                 toward a target rendered at the scene's own, and step 0 again eagerly
+                 (each trip under torch.utils.checkpoint) and graphed, in turns
+                 (graphed, eager, graphed); each step's forward and backward run under
+                 CUDA's sync debug mode set to error, and print the loss, the forward
+                 and backward times (CUDA events), the traversal launches of the
+                 forward and of the backward's recompute (128 + 128 both ways), and
+                 the peak memory; the loss and gradients must be finite, the
+                 reflectance gradient nonzero, and the loss must fall; eager against
+                 graphed: loss rtol 1e-5, gradients within 1e-4 of each table's
+                 largest |g|; the memory the graphed step holds (with the trip's pool
+                 and static buffers) at most 1.25x the eager step's; the step's Python
+                 called 3 times in step 0 (the eager first trip and two captures) and
+                 never after; the last step profiled (device-busy share, the top
+                 kernels); three replayed launches (262,144 rays, 1024 blocks), G_f's
+                 after its replay 8 and G_b's two after its replay 64, held to the
+                 plain version, bit for bit as in phase 3
               b. bench.py's bench_bwd point through mcrt_tpu_torch.bench.bench_bwd:
                  trace_streamed(fixed_trips=64) over 2^17 paths a chunk at 1024 spp
-                 through 8192 lanes, loss mean(pixel mean^2) over the four tables,
-                 a warm-up chunk and then four timed (phase 11a's bench times the
+                 through 8192 lanes, loss mean(pixel mean^2) over the four tables, a
+                 warm-up chunk and then four timed (phase 11a's bench times the
                  point at bench.py's own chunk, 2^19 paths through 32768 lanes):
-                 rays traced per second forward+backward, and around it, through
-                 bench.bwd_chunk, forward alone (no_grad, the same rays), the
-                 traversal launches per trip, the peak memory with and without
-                 remat, and a profiled chunk's device-busy share and the
-                 traversal's share of device time; three of that chunk's launches
-                 (8192 rays) held to the plain version
+                 rays traced per second forward+backward
+                 graphed, and around it, through bench.bwd_chunk, forward alone
+                 (no_grad, the same rays), the traversal launches per trip (2 + 2),
+                 chunk 0 graphed (capturing), eagerly and graphed again in turns,
+                 timed, with 9a's bars against the eager one, the peak memory with
+                 and without remat, and a profiled graphed chunk's device-busy
+                 share and the traversal's share of device time; three replayed
+                 launches of chunk 0 (8192 rays), G_f's after its replay 8 and G_b's
+                 two after its replay 56 (trip 8), held to the plain version
               c. the 64x64 camera, 1 spp, max_bounces 8, remat off: the loss and the
                  four gradient tables through the kernel, through the plain traversal
                  (patched in as in phase 5) and through the kernel again; losses
@@ -91,7 +105,8 @@ Phases (each prints its own lines; any failed check exits non-zero):
               at 512x512, 1 spp, max_bounces 64, each with the traversal's launch count
               set to 0 before it and read after (it must be > 0):
               a. a world of one over NCCL in this process: sharded_train_step(with_bvh=True)
-                 at 9a's first step's inputs, under CUDA's sync debug mode set to error,
+                 at 9a's first step's inputs (its trips graphed, as in 9a; the first
+                 call of each step captures), under CUDA's sync debug mode set to error,
                  held to that step (loss rtol 1e-5, gradients within 1e-4 of each table's
                  largest |g|); then train_step and that sharded step timed in turns
                  (train, sharded, sharded, train); sharded_render_step and
@@ -115,7 +130,10 @@ Phases (each prints its own lines; any failed check exits non-zero):
                  0, its rays per path within 10% of phase 4's, its graphed
                  forward point 2 launches a bounce step (then the same point
                  with the step called eagerly: the same rays and bounce steps,
-                 its rays/s beside the bench's), and both of its
+                 its rays/s beside the bench's; and the forward+backward point,
+                 one chunk after a warm-up, graphed and eagerly in one child
+                 process of its own, `chip_smoke.py bwd 19`: the same rays and
+                 loss, rtol 1e-5, both rates printed), and both of its
                  processes loaded the kernel library this run built from the
                  checkout's source, with nothing new in _build/; the line, the
                  walls and the traversal launches are printed
@@ -137,6 +155,7 @@ and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -206,6 +225,7 @@ IMG_ATOL = 2e-5
 # the traversal statistics through a SWITCH_WIDTH^2 camera on the same scene.
 BENCH_CMD = [sys.executable, "-m", "mcrt_tpu_torch.bench"]
 BENCH_TIMEOUT_S = 600.0
+BWD_TURN_REPS = 1           # 11a's child: chunks of the bench's forward+backward point each way
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "fwd_bwd_rays_per_s_1024spp",
               "fwd_bwd_chunk", "diag_walk_steps_32k", "diag_leaf_rounds_32k", "card"}
 SWITCH_WIDTH = 64
@@ -830,6 +850,41 @@ class LaunchRecorder:
         return out
 
 
+class ReplaySnapshots:
+    """Wraps GraphedTrip.replay_f and replay_b (the trip's graph G_f and its
+    recompute plus backward G_b): after the replays named in `plan`, clones
+    the tensors a LaunchRecorder keeps of a launch the graph captured (a
+    captured launch's tensors are the graph's static traversal inputs and
+    outputs, which hold the last replay's values), so that the replayed
+    launch can be held to the plain version; held_to_plain reads `seen` and
+    `at`. plan: {name: (0 for G_f or 1 for G_b, replay number from 1,
+    recorder call)}. Keeps references and device copies: nothing syncs."""
+
+    def __init__(self, rec, plan):
+        from mcrt_tpu_torch.utils import cuda_graph
+
+        self.rec, self.plan, self.at, self.seen = rec, plan, set(plan), {}
+        self.count = [0, 0]
+        self.cls = cuda_graph.GraphedTrip
+        self.real = (self.cls.replay_f, self.cls.replay_b)
+
+    def _wrap(self, which):
+        def replay(trip):
+            self.real[which](trip)
+            self.count[which] += 1
+            for name, (w, n, call) in self.plan.items():
+                if w == which and n == self.count[which]:
+                    cbvh, o, d, out = self.rec.seen[call]
+                    self.seen[name] = (cbvh, o.clone(), d.clone(), tuple(x.clone() for x in out))
+        return replay
+
+    def patches(self):
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(self.cls, "replay_f", self._wrap(0)))
+        stack.enter_context(mock.patch.object(self.cls, "replay_b", self._wrap(1)))
+        return stack
+
+
 def held_to_plain(tk, recorder, what, card, phase="grad"):
     """Each recorded launch against traverse_plain on its BVH and rays: t, id,
     u, v and the per-block stats must be bit-identical, as in phase 3, and
@@ -985,72 +1040,172 @@ def grad_phase(scene, cbvh, card):
     log("grad", f"target {cam.width}x{cam.height}, 1 spp, max_bounces {GRAD_BOUNCES}: "
         f"{time.perf_counter() - t0:.3f} s, mean {float(target.mean()):.6f} | {card}")
     check(bool(torch.isfinite(target).all()) and float(target.mean()) > 0.0, "grad", "bad target")
+    del image                   # and the trips it captured
     step = sharding.train_step(meta, cfg, cam, film_cfg, f32, with_bvh=True, device=dev)
     params = perturbed(truth)
     step0 = {"tables": tables, "params": params, "px": px, "py": py, "si": si, "target": target}
     split = GradSplit(tk)
-    # Step 0's launches held to the plain version afterwards: trip 0's rays
-    # and shadow rays, and trip 8's rays, dead lanes parked among them.
-    train_rec = LaunchRecorder(tk, at=(0, 1, 16))
-    losses, train_launches = [], 0
-    for i in range(SGD_STEPS):
+
+    def train_call(params, graphed=True, patches=(), prof=None):
+        """One train step under sync debug mode "error" (and inside `prof`, a
+        profiler, when given): its loss, gradients, forward and backward ms
+        (CUDA events), wall, traversal launches forward and in the
+        recompute, peak memory allocated and the peak reserved above what was
+        reserved at its start (GiB)."""
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        reserved0 = torch.cuda.memory_reserved()
         a, c = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         before = tk.kernel.launches
-        t0 = time.perf_counter()
-        a.record()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            with mock.patch.object(torch.autograd, "grad", split), \
-                    mock.patch.object(tk, "traverse", train_rec if i == 0 else tk.traverse):
-                loss, grads = step(tables, cbvh, params, px, py, si, target)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        c.record()
-        loss_v = float(loss)            # the step's one host read
-        c.synchronize()
-        wall = time.perf_counter() - t0
-        fwd_l, bwd_l = split.launches - before, tk.kernel.launches - split.launches
-        train_launches += fwd_l + bwd_l
-        top = {k: float(g.abs().max()) for k, g in grads.items()}
-        log("grad", f"step {i}: loss {loss_v:.9g}; forward {a.elapsed_time(split.start):.1f} ms, "
-            f"backward {split.start.elapsed_time(c):.1f} ms, wall {wall:.3f} s; traversal "
-            f"launches forward {fwd_l}, recompute {bwd_l}; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; largest |g| "
+        with prof if prof is not None else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            a.record()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with contextlib.ExitStack() as stack:
+                    stack.enter_context(mock.patch.object(torch.autograd, "grad", split))
+                    if not graphed:
+                        stack.enter_context(mock.patch.object(pt, "_graph_trips", lambda d: False))
+                    for p in patches:
+                        stack.enter_context(p)
+                    loss, grads = step(tables, cbvh, params, px, py, si, target)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            c.record()
+            loss_v = float(loss)            # the step's one host read
+            c.synchronize()
+        return {"loss": loss_v, "grads": grads, "fwd_ms": a.elapsed_time(split.start),
+                "bwd_ms": split.start.elapsed_time(c), "wall": time.perf_counter() - t0,
+                "fwd_l": split.launches - before, "bwd_l": tk.kernel.launches - split.launches,
+                "peak": torch.cuda.max_memory_allocated() / 2**30,
+                "reserved": (torch.cuda.max_memory_reserved() - reserved0) / 2**30}
+
+    def report(i, how, r):
+        top = {k: float(g.abs().max()) for k, g in r["grads"].items()}
+        log("grad", f"step {i} {how}: loss {r['loss']:.9g}; forward {r['fwd_ms']:.1f} ms, backward "
+            f"{r['bwd_ms']:.1f} ms, wall {r['wall']:.3f} s; traversal launches forward {r['fwd_l']}, "
+            f"recompute {r['bwd_l']}; peak memory {r['peak']:.3f} GiB allocated, "
+            f"{r['reserved']:.3f} GiB reserved above the step's start; largest |g| "
             + ", ".join(f"{k[4:]} {v:.4g}" for k, v in top.items()) + f" | {card}")
-        check(np.isfinite(loss_v) and all(bool(torch.isfinite(g).all()) for g in grads.values()),
-              "grad", f"step {i}: non-finite loss or gradient")
-        check(top["mat_reflectance"] > 0.0, "grad", f"step {i}: zero reflectance gradient")
-        check(fwd_l == 2 * GRAD_BOUNCES and bwd_l == 2 * GRAD_BOUNCES, "grad",
-              f"step {i}: expected {2 * GRAD_BOUNCES} traversal launches forward and as many "
-              f"in the recompute, got {fwd_l} and {bwd_l}")
-        losses.append(loss_v)
+        check(np.isfinite(r["loss"]) and all(bool(torch.isfinite(g).all()) for g in r["grads"].values()),
+              "grad", f"step {i} {how}: non-finite loss or gradient")
+        check(top["mat_reflectance"] > 0.0, "grad", f"step {i} {how}: zero reflectance gradient")
+        check(r["fwd_l"] == 2 * GRAD_BOUNCES and r["bwd_l"] == 2 * GRAD_BOUNCES, "grad",
+              f"step {i} {how}: expected {2 * GRAD_BOUNCES} traversal launches forward and as many "
+              f"in the recompute, got {r['fwd_l']} and {r['bwd_l']}")
+
+    # Step 0 captures the trip: tk.traverse's calls 0-1 are trip 0's eager
+    # warm-up, 2-3 G_f's capture and 4-5 G_b's. Three replayed launches are
+    # held to the plain version afterwards: G_f's primary launch after its
+    # replay 8 (trip 8's rays, dead lanes parked among them), and G_b's two
+    # after its replay 64 (the recompute of trip 0: camera and shadow rays).
+    train_rec = LaunchRecorder(tk, at=(2, 4, 5))
+    snaps = ReplaySnapshots(train_rec, {"G_f replay 8 (trip 8), primary": (0, 8, 2),
+                                        "G_b replay 64 (trip 0), primary": (1, 64, 4),
+                                        "G_b replay 64 (trip 0), shadow": (1, 64, 5)})
+    losses, train_launches, runs = [], 0, {}
+    # The last step runs under the profiler (CUDA activity only).
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    for i in range(SGD_STEPS):
+        patches = (mock.patch.object(tk, "traverse", train_rec), snaps.patches()) if i == 0 else ()
+        last = i == SGD_STEPS - 1
+        r = train_call(params, patches=patches, prof=prof if last else None)
+        report(i, "graphed, profiled" if last else "graphed", r)
+        train_launches += r["fwd_l"] + r["bwd_l"]
+        losses.append(r["loss"])
         if i == 0:
-            step0.update(loss=loss_v, grads=grads)
-        params = sgd_update(params, grads, truth)
+            step0.update(loss=r["loss"], grads=r["grads"])
+            (trip,) = step.graphs.values()
+            calls = trip.step_calls
+            # Step 0 again, eagerly (each trip under torch.utils.checkpoint)
+            # and graphed, in turns after the capture: graphed, eager, graphed.
+            runs = {"graphed": [r], "eager": [train_call(params, graphed=False)]}
+            runs["graphed"].append(train_call(params))
+            report(0, "eager", runs["eager"][0])
+            report(0, "graphed again", runs["graphed"][1])
+            for how, o in (("eager", runs["eager"][0]), ("graphed again", runs["graphed"][1])):
+                apart = grads_apart(o["grads"], r["grads"])
+                log("grad", f"step 0 {how} against graphed: loss {o['loss']:.9g} vs {r['loss']:.9g}; "
+                    f"largest |dg| / largest |g| per table "
+                    + ", ".join(f"{k[4:]} {v:.3g}" for k, v in apart.items()) + f" | {card}")
+                check(abs(o["loss"] - r["loss"]) <= 1e-5 * abs(r["loss"]), "grad",
+                      f"step 0 {how}: the loss is not the graphed step's")
+                check(all(v <= 1e-4 for v in apart.values()), "grad",
+                      f"step 0 {how}: the gradients are not the graphed step's")
+        params = sgd_update(params, r["grads"], truth)
+    (trip,) = step.graphs.values()
+    static = sum(t.numel() * t.element_size() for t in [*trip.leaves, *trip.state, *trip.gout])
+    e, g2 = runs["eager"][0], runs["graphed"][1]
+    footprint = g2["reserved"] + (trip.pool_bytes + static) / 2**30
     log("grad", f"{SGD_STEPS} SGD steps of size {SGD_LR}: loss {losses[0]:.9g} -> {losses[-1]:.9g} "
         f"(no host sync inside a step: sync debug mode 'error') | {card}")
+    per = [sum(n for c, n in trip.per_replay[w] if c is tk.kernel) for w in (0, 1)]
+    log("grad", f"the trip's graphs: G_f {per[0]} and G_b {per[1]} traversal launches a replay; pool "
+        f"{trip.pool_bytes / 2**30:.3f} GiB reserved, static buffers {static / 2**30:.3f} GiB; the "
+        f"step's Python ran {calls} times in step 0 (the eager first trip and the two captures) and "
+        f"{trip.step_calls - calls} times in the {SGD_STEPS + 1} graphed steps after | {card}")
+    log("grad", f"step 0 in turns (graphed, eager, graphed): walls {runs['graphed'][0]['wall']:.3f}, "
+        f"{e['wall']:.3f}, {g2['wall']:.3f} s; forward {runs['graphed'][0]['fwd_ms']:.1f}, "
+        f"{e['fwd_ms']:.1f}, {g2['fwd_ms']:.1f} ms; backward {runs['graphed'][0]['bwd_ms']:.1f}, "
+        f"{e['bwd_ms']:.1f}, {g2['bwd_ms']:.1f} ms; peak allocated {runs['graphed'][0]['peak']:.3f}, "
+        f"{e['peak']:.3f}, {g2['peak']:.3f} GiB; memory the step holds, reserved above its start "
+        f"(graphed again: plus the trip's pool and static buffers, reserved before it) "
+        f"{e['reserved']:.3f} GiB eager, {footprint:.3f} GiB graphed = "
+        f"{footprint / max(e['reserved'], 1e-9):.2f}x | {card}")
+    check(trip.step_calls == calls == 3 and per == [2, 2], "grad",
+          f"the step's Python ran {calls} times in step 0 and {trip.step_calls - calls} after; "
+          f"traversal launches a replay {per}")
+    check(footprint <= 1.25 * e["reserved"], "grad",
+          f"the graphed step holds {footprint:.3f} GiB, more than 1.25x the eager step's "
+          f"{e['reserved']:.3f} GiB")
     check(losses[-1] < losses[0], "grad", "the loss did not fall")
-    held_to_plain(tk, train_rec, "train step 0", card)
-    del train_rec
+    by_name = device_ns_by_name(prof)
+    dev_ns = sum(by_name.values())
+    if dev_ns > 0:
+        trav_ns = sum(v for k, v in by_name.items() if "traverse_kernel" in k)
+        log("grad", f"profiled step {SGD_STEPS - 1}, graphed: wall {r['wall']:.3f} s (profiler on), "
+            f"device busy {dev_ns / 1e9:.3f} s ({100 * dev_ns / 1e9 / r['wall']:.1f}% of wall; "
+            f"{100 * dev_ns / 1e9 / g2['wall']:.1f}% of graphed step 0's {g2['wall']:.3f} s), traversal "
+            f"{trav_ns / 1e9:.3f} s = {100 * trav_ns / dev_ns:.1f}% of device time | {card}")
+        for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log("grad", f"  device time {v / 1e6:10.1f} ms  {k[:90]}")
+    else:
+        log("grad", "profiled step: device share not measured (the profiler recorded no device time)")
+    del prof
+    held_to_plain(tk, snaps, "train step 0", card)
+    del train_rec, snaps
 
     # ---- 9b: forward+backward at bench.py's bench_bwd point, through the port's bench ----
     # Its rate from bench.bench_bwd (a warm-up chunk, then BWD_REPS chunks side
     # by side from the middle row); the checks around it run bench.bwd_chunk,
-    # the same work.
+    # the same work, where chunk 0 runs graphed and eagerly (each trip under
+    # torch.utils.checkpoint) in turns.
+    eager = lambda: mock.patch.object(pt, "_graph_trips", lambda d: False)
     before = tk.kernel.launches
     torch.cuda.synchronize()
+    reported = mock.Mock(wraps=bench._report)      # the point's `bench:` line
     try:
-        bwd = bench.bench_bwd(scene, dev, chunk_lg=BWD_CHUNK_LG, reps=BWD_REPS, trips=BWD_TRIPS)
+        with mock.patch.object(bench, "_report", reported):
+            bwd = bench.bench_bwd(scene, dev, chunk_lg=BWD_CHUNK_LG, reps=BWD_REPS, trips=BWD_TRIPS)
     except RuntimeError as e:
         fail("grad", f"bench_bwd point: {e}")
     launches_fb = tk.kernel.launches - before
+    bwd.update(reported.call_args.kwargs)
     chunk, leaves = bench.bwd_chunk(scene, dev, chunk_lg=BWD_CHUNK_LG, trips=BWD_TRIPS)
 
     def fwd_bwd(i, remat=True):
         loss, rays = chunk(i, remat)
         return loss.detach(), rays, torch.autograd.grad(loss, list(leaves.values()))
+
+    def timed_chunk(how):
+        """fwd_bwd(0) graphed or eagerly: (result, wall s, traversal launches)."""
+        torch.cuda.synchronize()
+        n0, t0 = tk.kernel.launches, time.perf_counter()
+        with eager() if how == "eager" else contextlib.nullcontext():
+            out = fwd_bwd(0)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, tk.kernel.launches - n0
 
     before = tk.kernel.launches
     t0 = time.perf_counter()
@@ -1062,52 +1217,92 @@ def grad_phase(scene, cbvh, card):
     n_rays_f = int(sum(int(r) for r in rays_f))
     check(n_rays_f == bwd["rays"], "grad",
           f"forward alone traced {n_rays_f} rays, with backward {bwd['rays']}")
+    check(bwd["trip_step_calls"] == 3, "grad",
+          f"bench_bwd: the trip's Python step ran {bwd['trip_step_calls']} times over its "
+          f"{BWD_REPS + 1} chunks (3 at the warm-up's capture, none after)")
     peak, base = {}, torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fwd_bwd(0, remat=False)
     torch.cuda.synchronize()
-    peak[False] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    peak["no remat"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    # Chunk 0 graphed: its first forward+backward captures the trip (its
+    # traversal calls 0-1 are trip 0's eager warm-up, 2-3 G_f's capture, 4-5
+    # G_b's). G_f's primary launch is held to the plain version after its
+    # replay 8 (trip 8), G_b's two after its replay 56 (trip 8's recompute);
+    # trip 0's rays, at the row's left end, see only sky.
+    bwd_rec = LaunchRecorder(tk, at=(2, 4, 5))
+    snaps = ReplaySnapshots(bwd_rec, {"G_f replay 8 (trip 8), primary": (0, 8, 2),
+                                      "G_b replay 56 (trip 8), primary": (1, 56, 4),
+                                      "G_b replay 56 (trip 8), shadow": (1, 56, 5)})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(tk, "traverse", bwd_rec), snaps.patches():
+        got, wall_c, launches_c = timed_chunk("graphed")
+    peak["remat, graphed, capturing"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    want, wall_e, launches_e = timed_chunk("eager")
+    peak["remat, eager"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    again, wall_g, launches_g = timed_chunk("graphed")
+    peak["remat, graphed"] = (torch.cuda.max_memory_allocated() - base) / 2**30
     fwd_trips, all_trips = BWD_REPS * BWD_TRIPS, (BWD_REPS + 1) * BWD_TRIPS
+    rays0 = int(want[1])
     log("grad", f"bench_bwd point (bench.bench_bwd): {BWD_REPS} chunks of {bwd['chunk']} paths at "
         f"{BWD_SPP} spp from path {chunk.first_path} (the middle row's pixels from x = 0), after one "
         f"warm-up chunk, {bench.bwd_lanes(bwd['chunk'])} lanes, {BWD_TRIPS} trips; forward+backward "
-        f"{bwd['time_s']:.3f} s, {bwd['rays']} rays traced (primary + shadow) = "
-        f"{bwd['rays_per_s'] / 1e6:.4f} M rays/s; forward alone (no_grad) {wall_f:.3f} s = "
+        f"graphed {bwd['time_s']:.3f} s, {bwd['rays']} rays traced (primary + shadow) = "
+        f"{bwd['rays_per_s'] / 1e6:.4f} M rays/s; forward alone (no_grad, graphed) {wall_f:.3f} s = "
         f"{n_rays_f / wall_f / 1e6:.4f} M rays/s; forward+backward / forward "
         f"{bwd['time_s'] / wall_f:.2f}x | {card}")
+    log("grad", f"bench_bwd chunk 0 in turns (graphed capturing, eager, graphed): walls {wall_c:.3f}, "
+        f"{wall_e:.3f}, {wall_g:.3f} s = {rays0 / wall_c / 1e6:.4f}, {rays0 / wall_e / 1e6:.4f}, "
+        f"{rays0 / wall_g / 1e6:.4f} M rays/s ({wall_e / wall_g:.2f}x); traversal launches "
+        f"{launches_c}, {launches_e}, {launches_g} | {card}")
     log("grad", f"bench_bwd point: traversal launches per trip {fwd_launches / fwd_trips:.2f} forward, "
         f"{launches_fb / all_trips:.2f} forward+backward (with the recompute) | {card}")
-    check(fwd_launches == 2 * fwd_trips and launches_fb == 4 * all_trips, "grad",
+    check(fwd_launches == 2 * fwd_trips and launches_fb == 4 * all_trips and
+          launches_c == launches_e == launches_g == 4 * BWD_TRIPS, "grad",
           f"bench_bwd point: expected 2 traversal launches a trip forward and 4 with the backward, "
-          f"got {fwd_launches} over {fwd_trips} trips and {launches_fb} over {all_trips}")
-    # A profiled chunk, CUDA activity only, which also gives the peak memory
-    # with remat. Its launches of trips 8 and 16 are held to the plain version
-    # afterwards (trip 0's rays, at the row's left end, see only sky).
-    bwd_rec = LaunchRecorder(tk, at=(16, 17, 32))
+          f"got {fwd_launches} over {fwd_trips} trips and {launches_fb} over {all_trips}; chunk 0 "
+          f"{launches_c}, {launches_e}, {launches_g} over {BWD_TRIPS} trips")
+    for how, o in (("graphed", got), ("graphed again", again)):
+        apart = grads_apart(dict(zip(leaves, o[2])), dict(zip(leaves, want[2])))
+        log("grad", f"bench_bwd chunk 0, {how} against eager: loss {float(o[0]):.9g} vs "
+            f"{float(want[0]):.9g}, rays {int(o[1])} vs {rays0}; largest |dg| / largest |g| "
+            f"per table " + ", ".join(f"{k[4:]} {v:.3g}" for k, v in apart.items()) + f" | {card}")
+        check(abs(float(o[0]) - float(want[0])) <= 1e-5 * abs(float(want[0])) and
+              int(o[1]) == rays0, "grad", f"bench_bwd chunk 0: the {how} loss or rays are not eager's")
+        check(all(v <= 1e-4 for v in apart.values()), "grad",
+              f"bench_bwd chunk 0: the {how} gradients are not the eager ones")
+    # A profiled chunk, graphed (replays only), CUDA activity only.
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
-            mock.patch.object(tk, "traverse", bwd_rec):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         fwd_bwd(0)
         torch.cuda.synchronize()
         wall1 = time.perf_counter() - t1
-    peak[True] = (torch.cuda.max_memory_allocated() - base) / 2**30
-    log("grad", f"bench_bwd point: peak memory above the scene, one chunk: remat {peak[True]:.3f} GiB, "
-        f"no remat {peak[False]:.3f} GiB | {card}")
+    trip = list(chunk.graphs.values())[-1]      # the no_grad forward's trip came first
+    log("grad", f"bench_bwd point: peak memory allocated above the scene, one chunk: "
+        + ", ".join(f"{k} {v:.3f} GiB" for k, v in peak.items())
+        + f"; the graphed trip's pool {trip.pool_bytes / 2**30:.3f} GiB reserved; the trip's "
+        f"Python step ran {trip.step_calls} times over chunk 0's three graphed calls, and "
+        f"bench_bwd's {bwd['trip_step_calls']} times over its {BWD_REPS + 1} chunks | {card}")
+    check(trip.step_calls == 3, "grad",
+          f"bench_bwd chunk 0: the trip's Python step ran {trip.step_calls} times (3 at the capture)")
     by_name = device_ns_by_name(prof)
     dev_ns = sum(by_name.values())
     if dev_ns > 0:
         trav_ns = sum(v for k, v in by_name.items() if "traverse_kernel" in k)
-        log("grad", f"profiled chunk: wall {wall1:.3f} s (profiler on), device busy "
-            f"{dev_ns / 1e9:.3f} s ({100 * dev_ns / 1e9 / wall1:.1f}% of wall), traversal "
-            f"{trav_ns / 1e9:.3f} s = {100 * trav_ns / dev_ns:.1f}% of device time | {card}")
+        log("grad", f"profiled chunk, graphed: wall {wall1:.3f} s (profiler on), device busy "
+            f"{dev_ns / 1e9:.3f} s ({100 * dev_ns / 1e9 / wall1:.1f}% of wall; "
+            f"{100 * dev_ns / 1e9 / wall_g:.1f}% of the unprofiled graphed chunk's {wall_g:.3f} s), "
+            f"traversal {trav_ns / 1e9:.3f} s = {100 * trav_ns / dev_ns:.1f}% of device time | {card}")
         for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log("grad", f"  device time {v / 1e6:10.1f} ms  {k[:90]}")
     else:
         log("grad", "device share: not measured (the profiler recorded no device time)")
-    held_to_plain(tk, bwd_rec, "bench_bwd chunk", card)
-    del bwd_rec
+    held_to_plain(tk, snaps, "bench_bwd chunk 0", card)
+    del bwd_rec, snaps, chunk, leaves
 
     # ---- 9c: the kernel's gradients against the plain traversal's ----
     cam_s = dataclasses.replace(cam, width=CHECK_GRAD_WIDTH, height=CHECK_GRAD_WIDTH)
@@ -1249,6 +1444,25 @@ def rank_main(rank: int, world: int, port: int, work: pathlib.Path) -> int:
     return 0
 
 
+def bwd_turns_main(chunk_lg: int) -> int:
+    """Phase 11a's child: bench.bench_bwd at 2^chunk_lg paths a chunk on the
+    bench's scene, graphed and then eagerly (each trip under
+    torch.utils.checkpoint), BWD_TURN_REPS chunks each after a warm-up;
+    prints one JSON line {"graphed": ..., "eager": ...} of their results."""
+    import torch
+
+    from mcrt_tpu_torch import bench
+    from mcrt_tpu_torch.integrator import path_tracer as pt
+
+    dev = torch.device("cuda", 0)
+    scene = bench.bench_scene()
+    out = {"graphed": bench.bench_bwd(scene, dev, chunk_lg=chunk_lg, reps=BWD_TURN_REPS)}
+    with mock.patch.object(pt, "_graph_trips", lambda d: False):
+        out["eager"] = bench.bench_bwd(scene, dev, chunk_lg=chunk_lg, reps=BWD_TURN_REPS)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def multi_phase(scene, cbvh, card, step0):
     """Phase 10: the sharded steps on torch.distributed. Returns the traversal's
     launches in 10a's sharded train step."""
@@ -1309,10 +1523,14 @@ def multi_phase(scene, cbvh, card, step0):
             walls[name].append(wall_i)
             check(abs(float(loss_i) - float(loss)) <= 1e-5 * abs(float(loss)), "multi",
                   f"{name}: the loss moved between runs")
+        calls = [t.step_calls for fn in (step, one) for t in fn.graphs.values()]
         log("multi", f"10a in turns (train, sharded, sharded, train), walls: train_step "
             + ", ".join(f"{w:.3f}" for w in walls["train_step"]) + " s; sharded_train_step "
             + ", ".join(f"{w:.3f}" for w in walls["sharded_train_step"])
-            + f" s (its first call above: {wall:.3f} s) | {card}")
+            + f" s (its first call above: {wall:.3f} s; each step's first call captures its "
+            f"trip); the trips' Python step calls (sharded, train) {calls} | {card}")
+        check(calls == [3, 3], "multi", f"10a: the trips' Python step ran {calls} times "
+              "(3 at each step's capture, none after)")
         del one
         rstep = sharding.sharded_render_step(meta, cfg, cam, film_cfg, mesh, torch.float32,
                                              with_bvh=True, device=dev)
@@ -1467,6 +1685,11 @@ def bench_phase(scene, cbvh, card, render_rays_per_path):
     check(fwd["launches"] == 2 * fwd["bounce_steps"] and fwd["graph_pool_bytes"], "bench",
           f"the forward point's {fwd['launches']} launches for {fwd['bounce_steps']} graphed bounce "
           f"steps, graph pool {fwd['graph_pool_bytes']}")
+    check(bwd["launches"] == 4 * bwd["reps"] * bwd["trips"] and bwd["graph_pool_bytes"]
+          and bwd["trip_step_calls"] == 3, "bench",
+          f"the forward+backward point's {bwd['launches']} launches for {bwd['reps']} chunks of "
+          f"{bwd['trips']} trips, graph pool {bwd['graph_pool_bytes']}, the trip's Python step "
+          f"called {bwd['trip_step_calls']} times (3 at the warm-up's capture, none after)")
     log("bench", f"python -m mcrt_tpu_torch.bench: wall {wall:.1f} s; forward {fwd['chunks']} chunks of "
         f"{fwd['chunk']} paths through {fwd['lanes']} lanes {fwd['time_s']:.3f} s, {fwd['rays']} rays "
         f"({per_path:.4f} a path, phase 4 {render_rays_per_path:.4f}), {fwd['bounce_steps']} bounce steps, "
@@ -1474,7 +1697,8 @@ def bench_phase(scene, cbvh, card, render_rays_per_path):
         f"{fwd['diag_first_path']}, {fwd['diag_bounce_steps']} bounce steps, {fwd['diag_launches']} "
         f"launches; forward+backward {bwd['reps']} chunks of {bwd['chunk']} paths through "
         f"{bwd['lanes']} lanes, {bwd['trips']} trips, {bwd['time_s']:.3f} s, {bwd['rays']} rays, "
-        f"{bwd['launches']} launches; {launches} launches in all, warm-ups included; kernel library "
+        f"{bwd['launches']} launches, trip graph pool {bwd['graph_pool_bytes'] / 2**30:.3f} GiB; "
+        f"{launches} launches in all, warm-ups included; kernel library "
         f"{lib.name} in both processes | {card}")
     # The bench's forward point with the step called eagerly, in turn after the
     # graphed one: the same 16 chunks of 2^18 paths through 16384 lanes, the
@@ -1491,6 +1715,27 @@ def bench_phase(scene, cbvh, card, render_rays_per_path):
         f"bounce steps | {card}")
     check(rays_e == fwd["rays"] and stats_e["bounce_steps"] == fwd["bounce_steps"], "bench",
           "the eager forward point's rays or bounce steps are not the bench's")
+    # The bench's forward+backward point graphed and eagerly, in one child
+    # process of its own (the bench's chunk, BWD_TURN_REPS chunks each way).
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "bwd", str(bwd["chunk"].bit_length() - 1)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S, cwd=str(ROOT))
+    wall_t = time.perf_counter() - t0
+    lines = [line for line in out.stdout.splitlines() if line.startswith("{")]
+    if out.returncode != 0 or not lines:
+        print("\n".join(out.stderr.splitlines()[-30:]), flush=True)
+        fail("bench", f"the forward+backward point in turns exited {out.returncode} with no result")
+    turns = json.loads(lines[-1])
+    g, e = turns["graphed"], turns["eager"]
+    log("bench", f"the forward+backward point, {BWD_TURN_REPS} chunks of {g['chunk']} paths each way "
+        f"in one process ({wall_t:.1f} s with the scene): graphed {g['time_s']:.3f} s, "
+        f"{g['rays_per_s'] / 1e6:.4f} M rays/s; eagerly {e['time_s']:.3f} s, "
+        f"{e['rays_per_s'] / 1e6:.4f} M rays/s ({g['rays_per_s'] / e['rays_per_s']:.2f}x); rays "
+        f"{g['rays']} and {e['rays']}, last loss {g['loss']:.9g} and {e['loss']:.9g}; the bench's "
+        f"fwd_bwd_rays_per_s_1024spp (graphed, {bwd['reps']} chunks) "
+        f"{res['fwd_bwd_rays_per_s_1024spp'] / 1e6:.4f} M | {card}")
+    check(g["rays"] == e["rays"] and abs(g["loss"] - e["loss"]) <= 1e-5 * abs(e["loss"]), "bench",
+          "the forward+backward point's rays or loss differ graphed and eagerly")
 
     # ---- 11b: the intersect in lane order ----
     # coherence_key patched to the lane index: the stable sort keeps the lanes
@@ -1938,6 +2183,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["bwd"]:      # phase 11a's child, started by bench_phase
+        sys.exit(bwd_turns_main(int(sys.argv[2])))
     if sys.argv[1:2] == ["rank"]:     # one rank of phase 10b, started by multi_phase
         sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
                            pathlib.Path(sys.argv[5])))

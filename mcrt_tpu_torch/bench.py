@@ -188,7 +188,8 @@ def bwd_chunk(scene: Scene, device=None, chunk_lg: int = BWD_CHUNK_LG, trips: in
     (side by side from the image's middle row) through
     trace_streamed(fixed_trips=trips) over bwd_lanes(2^chunk_lg) lanes, and
     returns (mean(pixel mean^2), rays traced); params are the four material
-    tables as leaves that require grad."""
+    tables as leaves that require grad. On the card the first chunk captures
+    the trip's graphs (kept in chunk.graphs) and the later chunks replay them."""
     device = resolve_device(device)
     cam = scene.cameras[0]
     n_paths = 1 << chunk_lg
@@ -201,6 +202,7 @@ def bwd_chunk(scene: Scene, device=None, chunk_lg: int = BWD_CHUNK_LG, trips: in
     params = {k: getattr(tables, k).detach().clone().requires_grad_() for k in PARAM_KEYS}
     total = cam.width * cam.height * BWD_SPP
     first = _middle_row(cam, BWD_SPP, n_paths)
+    graphs = {}
 
     def chunk(i: int, remat: bool = True):
         start = (first + i * n_paths) % (total - n_paths) if total > n_paths else 0
@@ -208,11 +210,12 @@ def bwd_chunk(scene: Scene, device=None, chunk_lg: int = BWD_CHUNK_LG, trips: in
         ifn = cluster_bvh.make_intersect_fn(t, meta, cbvh)
         out, rays = pt.trace_streamed(t, meta, cfg, cam, BWD_SPP, start, n_paths,
                                       bwd_lanes(n_paths), intersect_fn=ifn, fixed_trips=trips,
-                                      remat=remat)
+                                      remat=remat, graphs=graphs)
         pixel_mean = out.view(-1, BWD_SPP, 3).sum(dim=1) / BWD_SPP
         return (pixel_mean ** 2).mean(), rays
 
     chunk.first_path = first
+    chunk.graphs = graphs
     return chunk, params
 
 
@@ -221,7 +224,10 @@ def bench_bwd(scene: Scene, device=None, chunk_lg: int = BWD_CHUNK_LG, reps: int
     """Forward+backward rays/s: torch.autograd.grad of bwd_chunk's loss with
     respect to the four material tables, every trip rematerialised. One
     warm-up chunk, whose loss and gradients must be finite, then chunks 0 to
-    reps - 1 timed with one synchronisation at the end."""
+    reps - 1 timed with one synchronisation at the end. On the card the
+    warm-up captures the trip's graphs; the `bench:` line gives their pool
+    (`graph_pool_bytes`) and the Python step's calls (`trip_step_calls`: 3
+    at the capture, none in a replay; without graphs None and 0)."""
     device = resolve_device(device)
     chunk, params = bwd_chunk(scene, device, chunk_lg, trips, seed)
     n_paths = 1 << chunk_lg
@@ -247,9 +253,13 @@ def bench_bwd(scene: Scene, device=None, chunk_lg: int = BWD_CHUNK_LG, reps: int
     launches = tk.kernel.launches - launches
     check_finite(loss, grads, "last chunk")
     total_rays = int(torch.stack(rays_list).sum())
+    trips_graphed = list(chunk.graphs.values())
+    pool_bytes = sum(t.pool_bytes for t in trips_graphed) if trips_graphed else None
+    step_calls = sum(t.step_calls for t in trips_graphed)
     _report("forward+backward", device=str(device), reps=reps, chunk=n_paths,
             lanes=bwd_lanes(n_paths), trips=trips, first_path=chunk.first_path, time_s=dt,
-            rays=total_rays, launches=launches)
+            rays=total_rays, launches=launches, graph_pool_bytes=pool_bytes,
+            trip_step_calls=step_calls)
     return {
         "rays_per_s": total_rays / dt,
         "chunk": n_paths,

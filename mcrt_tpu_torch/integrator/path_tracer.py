@@ -15,10 +15,14 @@ compiled program (`jax.jit`); on the CPU it calls the step eagerly. The
 differentiable loops (`trace(differentiable=True)`,
 `trace_streamed(fixed_trips=N)`) run a fixed number of trips with no host
 sync (the JAX package's `lax.scan`), each trip rematerialised in the
-backward pass by `torch.utils.checkpoint` (its `jax.checkpoint`).
-Gradients flow through the continuous BSDF, pdf and throughput chain; the
-Sobol decisions are integer functions of the path's indices, and the
-traversal is detached (ops/cluster_bvh.make_intersect_fn).
+backward pass (its `jax.checkpoint`): on the card every trip replays two
+captured CUDA graphs, the trip and its recompute plus backward
+(utils/cuda_graph.GraphedTrip), which the `graphs` dict a caller passes
+keeps for its later calls of the same shapes; on the CPU each trip runs
+under `torch.utils.checkpoint`. Gradients flow through the continuous
+BSDF, pdf and throughput chain; the Sobol decisions are integer functions
+of the path's indices, and the traversal is detached
+(ops/cluster_bvh.make_intersect_fn).
 """
 from __future__ import annotations
 
@@ -130,6 +134,7 @@ def make_bounce_step(
     cfg: PTConfig,
     intersect_fn: Callable,
     regen: RegenCfg | None = None,
+    packs: common.ScenePacks | None = None,
 ):
     """Builds the single-bounce transition function over PathState.
 
@@ -138,11 +143,19 @@ def make_bounce_step(
     sets the returned function's `counted` to True. For the cluster BVH these
     are the traversal kernel's [candidates summed over blocks, most rounds of
     a block] of each launch (the Pallas kernel's stats), summed over bounces;
-    the shadow intersect's are not counted."""
+    the shadow intersect's are not counted.
+
+    The step's `leaves` are the tensors it closes over: the tables, the packs
+    (built here from the tables unless given), the camera's constants and the
+    intersect's leaves; `rebind(leaves)` builds the same step over others of
+    the same shapes, and `key` names the rest of what it depends on (as
+    utils/cuda_graph.GraphedTrip asks). An intersect without `leaves` is
+    read where it is, and keyed by its identity."""
     dtype = tables.tri_v0.dtype
     eps = ray_offset_eps(dtype)
     K = cfg.ior_stack_size
-    packs = common.build_packs(tables, meta)
+    if packs is None:
+        packs = common.build_packs(tables, meta)
 
     def step(st: PathState) -> PathState:
         base_ctx = sobol.make_ctx(cfg.global_seed, st.pixel_index, st.sample_index, dtype)
@@ -318,7 +331,26 @@ def make_bounce_step(
         )
 
     step.counted = False
+    bound = hasattr(intersect_fn, "leaves")
+    step.leaves = (tables, packs, None if regen is None else regen.consts,
+                   intersect_fn.leaves if bound else None)
+
+    def rebind(leaves):
+        t, p, consts, isect_leaves = leaves
+        return make_bounce_step(
+            t, meta, cfg, intersect_fn.rebind(isect_leaves) if bound else intersect_fn,
+            None if regen is None else regen._replace(consts=consts), packs=p)
+
+    step.rebind = rebind
+    step.key = (meta, cfg, None if regen is None else _regen_key(regen),
+                intersect_fn.key if bound else intersect_fn)
     return step
+
+
+def _regen_key(regen: RegenCfg):
+    """RegenCfg's fields but its tensors; the camera by identity (a trip
+    built from it keeps it alive, so the identity is not reused)."""
+    return (id(regen.cam),) + tuple(regen._replace(cam=None, consts=None))
 
 
 def _init_state(tables, cfg, origin, direction, pixel_index, sample_index, alive,
@@ -376,8 +408,26 @@ def _checkpointed(step):
         step, st, use_reentrant=False, preserve_rng_state=False)
 
 
-def _run_trips(step, st, trips: int, remat: bool):
-    """`trips` steps with no host sync, each rematerialised when `remat`."""
+def _graph_trips(device) -> bool:
+    """Whether rematerialised trips on `device` replay captured graphs: on
+    the card they do."""
+    return device.type == "cuda"
+
+
+def _run_trips(step, st, trips: int, remat: bool, graphs: dict | None = None):
+    """`trips` steps with no host sync, each rematerialised when `remat`:
+    on the card through a GraphedTrip, found in `graphs` by its key or
+    captured and kept there (None: kept for this call alone); elsewhere, and
+    without remat, eagerly."""
+    if remat and trips and _graph_trips(st.origin.device):
+        graphs = {} if graphs is None else graphs
+        key = cuda_graph.GraphedTrip.key(step, st)
+        if key not in graphs:
+            graphs[key] = cuda_graph.GraphedTrip(step, st)
+        trip = graphs[key]
+        st = trip.run(step, st, trips)
+        step.counted = trip.step.counted
+        return st
     body = _checkpointed(step) if remat else step
     for _ in range(trips):
         st = body(st)
@@ -396,6 +446,7 @@ def trace(
     return_stats: bool = False,
     differentiable: bool = False,
     remat: bool = True,
+    graphs: dict | None = None,
 ):
     """Trace a batch of camera rays to radiance. Returns (R,3) radiance
     (and {"rays": count, "bounce_steps": steps run} with return_stats, plus
@@ -407,9 +458,11 @@ def trace(
     exactly cfg.max_bounces steps and never syncs, so autograd can reverse it
     (dead lanes are parked and carry their radiance unchanged); `remat` then
     checkpoints every step, so the backward pass stores one PathState per
-    bounce and recomputes the rest."""
+    bounce and recomputes the rest; on the card each step replays captured
+    graphs, kept in `graphs` for later calls of the same shapes (see
+    _run_trips)."""
     if intersect_fn is None:
-        intersect_fn = lambda o, d: isect.intersect_brute(tables, meta, o, d)
+        intersect_fn = isect.make_brute_fn(tables, meta)
     step = make_bounce_step(tables, meta, cfg, intersect_fn)
     R = origin.shape[0]
     dev = origin.device
@@ -421,7 +474,7 @@ def trace(
         torch.zeros((), dtype=torch.int64, device=dev),
         torch.zeros((1, 3), dtype=origin.dtype, device=dev))
     if differentiable:
-        st = _run_trips(step, st, cfg.max_bounces, remat)
+        st = _run_trips(step, st, cfg.max_bounces, remat, graphs)
         steps = cfg.max_bounces
     else:
         steps = 0
@@ -468,7 +521,7 @@ class StreamedTrace:
         self.tables, self.cfg, self.cam = tables, cfg, cam
         dtype = tables.tri_v0.dtype
         if intersect_fn is None:
-            intersect_fn = lambda o, d: isect.intersect_brute(tables, meta, o, d)
+            intersect_fn = isect.make_brute_fn(tables, meta)
         self.regen = RegenCfg(cam=cam, consts=cam_mod.camera_consts(cam, dtype, tables.tri_v0.device),
                               width=cam.width, spp=spp, n_paths=n_paths, lanes=lanes,
                               strided=strided, pixel_sums=pixel_sums, fixed=fixed)
@@ -575,6 +628,7 @@ def trace_streamed(
     fixed_trips: int | None = None,
     remat: bool = True,
     strided: bool | None = None,
+    graphs: dict | None = None,
 ):
     """Persistent-wavefront trace: `lanes` lanes stream `n_paths` camera paths
     (global indices [start, start+n_paths), pixel-major x sample-minor as in
@@ -584,8 +638,9 @@ def trace_streamed(
     fixed_trips: None (the forward render) runs until every path drained, one
     host sync per bounce, through a one-shot StreamedTrace (on the card, a
     captured bounce step). An int runs exactly that many steps with no host
-    sync, eagerly, which autograd can reverse: the differentiable wavefront,
-    each trip checkpointed when `remat`. Paths still in flight when the trips
+    sync, which autograd can reverse: the differentiable wavefront, each trip
+    rematerialised when `remat` (on the card, replayed graphs kept in
+    `graphs`; see _run_trips). Paths still in flight when the trips
     run out add their partial radiance (truncation, as at max_bounces); paths
     never started add nothing. strided: the assignment mode, by default
     lane-strided exactly when fixed_trips is given; pixel_sums needs the
@@ -604,7 +659,7 @@ def trace_streamed(
             return run(start, stats)
         finally:
             run.close()
-    st = _run_trips(run.step, run.initial(start), fixed_trips, remat)
+    st = _run_trips(run.step, run.initial(start), fixed_trips, remat, graphs)
     if stats is not None:
         stats["bounce_steps"] = stats.get("bounce_steps", 0) + fixed_trips
     return run.output(st)

@@ -174,15 +174,19 @@ def coherence_key(origin, direction, bb_lo, bb_hi):
     return (octant << 27) | (om << 9) | dm
 
 
-def make_intersect_fn(tables: SceneTables, meta: SceneMeta, cbvh: ClusterBVH):
+def make_intersect_fn(tables: SceneTables, meta: SceneMeta, cbvh: ClusterBVH, geo_pack=None):
     """Scene intersect closure: cluster BVH for triangles + brute spheres/quadrics.
 
     Rays are grouped into coherent K-ray blocks by the Morton/octant key inside
     this wrapper (permute origin/direction in, unpermute the hit fields out),
     so the integrator's carry stays in lane order.
 
-    Hit.steps is [candidates summed over blocks, most rounds of any block]."""
-    geo_pack = build_geo_pack(tables) if meta.n_tris else None
+    Hit.steps is [candidates summed over blocks, most rounds of any block].
+    The closure's `leaves` are the tensors it reads, (tables, cbvh, geo_pack:
+    the triangles' packed rows, built here unless given), and `rebind(leaves)`
+    builds it over others of the same shapes."""
+    if geo_pack is None and meta.n_tris:
+        geo_pack = build_geo_pack(tables)
 
     def intersect(origin, direction):
         big = torch.finfo(origin.dtype).max
@@ -226,4 +230,7 @@ def make_intersect_fn(tables: SceneTables, meta: SceneMeta, cbvh: ClusterBVH):
 
         return Hit(t=best_t, surf_id=best_id, uv=best_uv, steps=steps)
 
+    intersect.leaves = (tables, cbvh, geo_pack)
+    intersect.rebind = lambda leaves: make_intersect_fn(leaves[0], meta, leaves[1], leaves[2])
+    intersect.key = ("cluster_bvh", meta)
     return intersect

@@ -205,3 +205,13 @@ def intersect_brute(tables: SceneTables, meta: SceneMeta, origin, direction) -> 
 
     best_t, best_uv = refine_tri_hit(tables, meta, origin, direction, best_t, best_id, best_uv)
     return Hit(t=best_t, surf_id=best_id, uv=best_uv)
+
+
+def make_brute_fn(tables: SceneTables, meta: SceneMeta):
+    """intersect_brute over `tables` as an intersect closure, with the
+    `leaves` (the tables), `rebind` and `key` of cluster_bvh.make_intersect_fn."""
+    fn = lambda origin, direction: intersect_brute(tables, meta, origin, direction)
+    fn.leaves = (tables,)
+    fn.rebind = lambda leaves: make_brute_fn(leaves[0], meta)
+    fn.key = ("brute", meta)
+    return fn

@@ -103,8 +103,11 @@ def _local_film(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype, device
     """Returns fn(tables, cbvh, px, py, si) -> this rank's (H, W, 4) film of its
     slice of the global (R,) px, py, si. cbvh None intersects by brute force.
     The camera's constants are uploaded here, once: inside a step the upload
-    would synchronise the host with the card."""
+    would synchronise the host with the card. On the card the differentiable
+    trace's trips are captured at the first call and replayed by the later
+    ones of the same shapes (`graphs`, path_tracer._run_trips)."""
     consts = cam_mod.camera_consts(cam, dtype, device)
+    graphs = {}
 
     def film(tables, cbvh, px, py, si):
         lo, per = shard(px.shape[0], mesh.rank, mesh.size)
@@ -114,9 +117,10 @@ def _local_film(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype, device
                                      consts=consts)
         radiance = pt.trace(tables, meta, cfg, rays.origin, rays.direction, rays.pixel_index,
                             rays.sample_index, intersect_fn=intersect_fn,
-                            differentiable=differentiable)
+                            differentiable=differentiable, graphs=graphs)
         return film_mod.splat(film_cfg, rays.px, radiance)
 
+    film.graphs = graphs
     return film
 
 
@@ -156,6 +160,8 @@ def sharded_train_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype,
     target)^2) of the image scanned from the summed film, a 0-d tensor on the
     device; the gradients are summed over the ranks, so every rank returns the
     same loss and gradients. Nothing in the step reads the card from the host.
+    The returned function's `graphs` holds the trips captured on the card
+    (path_tracer._run_trips): the first call captures, later calls replay.
     device: None is the CUDA device (raise without one); "cpu" on request."""
     device = resolve_device(device)
     dtype = torch_dtype(dtype)
@@ -174,10 +180,10 @@ def sharded_train_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype,
         grads = dict(zip(leaves, grads))
         return loss.detach(), grads if isinstance(params, dict) else grads["mat_reflectance"]
 
-    if with_bvh:
-        return value_and_grad
-    return lambda tables, params, px, py, si, target: value_and_grad(
-        tables, None, params, px, py, si, target)
+    fn = value_and_grad if with_bvh else lambda tables, params, px, py, si, target: \
+        value_and_grad(tables, None, params, px, py, si, target)
+    fn.graphs = local.graphs
+    return fn
 
 
 def image_step(meta, cfg: pt.PTConfig, cam, film_cfg, dtype, device=None):

@@ -10,10 +10,16 @@ stream is being captured, a launch only records the kernel into the graph and
 runs nothing: it goes to `captured`, not to `launches`. Each
 `CapturedStep.replay` then adds to `launches` the launches its graph holds, so
 `launches` counts the kernels that ran, eagerly or in a replay.
+
+The differentiable loops' counterpart (`lax.scan` over `jax.checkpoint`) is
+`GraphedTrip`: one trip as two graphs, the trip and its recompute plus
+backward, replayed by an autograd Function for every trip of every call of
+the same shapes.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 # Every LaunchCounter made: one per kernel wrapper, made when its module is imported.
 _COUNTERS: list[LaunchCounter] = []
@@ -78,3 +84,249 @@ class CapturedStep:
 
     def close(self):
         self.graph.reset()
+
+
+def _distinct_tensors(tree):
+    """(tensors, pattern, spec) of a pytree: its distinct tensors in order of
+    first appearance, and per flattened leaf the index of its tensor in that
+    list or, for a leaf that is not a tensor, the leaf itself."""
+    flat, spec = tree_flatten(tree)
+    tensors, where, pattern = [], {}, []
+    for x in flat:
+        if isinstance(x, torch.Tensor):
+            if id(x) not in where:
+                where[id(x)] = len(tensors)
+                tensors.append(x)
+            pattern.append(where[id(x)])
+        else:
+            pattern.append(("const", x))
+    return tensors, tuple(pattern), spec
+
+
+class GraphedTrip:
+    """One trip of a differentiable loop as two CUDA graphs over static
+    buffers: the counterpart of the JAX package's `lax.scan` over
+    `jax.checkpoint(step)`, whose compiled body serves every trip.
+
+    `step(state) -> state` maps a NamedTuple of tensors to another of the same
+    shapes, and reads no tensor but its state and `step.leaves`, a pytree of
+    the tensors it closes over (the scene tables, the packs built from them);
+    `step.rebind(leaves)` builds the same step over other tensors of the same
+    shapes, and `step.key` names what else the step depends on. A trip is
+    built over static copies of the leaves and of one state:
+
+    - G_f, the trip: under no_grad, the step from the static state to static
+      outputs;
+    - G_b, the trip's recompute and backward: the step again with the static
+      state's floating fields and the leaves that require grad as autograd
+      leaves, then `torch.autograd.grad` of the floating outputs against
+      static cotangents.
+
+    `run(step, state, trips)` copies the call's leaves into the static ones
+    and runs `trips` trips, each an autograd Function: its forward copies the
+    state in, replays G_f and returns clones of the outputs (the next trip
+    overwrites them), saving only its input; its backward copies the saved
+    input and the cotangents in, replays G_b and returns clones of the
+    gradients, the leaves' among them, so autograd carries those on to
+    whatever the caller built the leaves from. A backward reloads its call's
+    leaves when another call has loaded its own since.
+
+    The first trip of the first call runs the step eagerly with autograd on
+    (on the card on a side stream), its values that trip's outputs, and a
+    backward of it against zero cotangents: that builds the kernels and
+    settles the allocator. Then, on the card, G_f and G_b are captured in one
+    memory pool; a capture that fails raises. On the CPU nothing is captured:
+    the two bodies run where the replays would. `pool_bytes` is what the
+    captures reserved; `per_replay` is [(counter, launches a replay runs)]
+    for G_f and for G_b. `step_calls` counts the Python step's calls: one
+    eagerly and one in each capture on the card, and none after."""
+
+    def __init__(self, step, state):
+        tensors, self.pattern, self.spec = _distinct_tensors(step.leaves)
+        self.diff_leaves = [i for i, t in enumerate(tensors) if t.requires_grad]
+        self.leaves = [t.detach().clone() for t in tensors]
+        for i in self.diff_leaves:
+            self.leaves[i].requires_grad_()
+        self.step = step.rebind(self._tree(self.leaves))
+        self.make = type(state)
+        self.state = self.make(*(x.detach().clone() for x in state))
+        self.float_in = [i for i, x in enumerate(state) if x.is_floating_point()]
+        self.cuda = self.state[0].device.type == "cuda"
+        self.loaded = None
+        self.diff_out = self.gout = self.out = self.gin = None
+        self.graphs = ()
+        self.pool_bytes = 0
+        self.per_replay = ([], [])
+        self.step_calls = 0
+
+    @staticmethod
+    def key(step, state):
+        """What a trip's graphs depend on beyond the values of its inputs."""
+        tensors, pattern, spec = _distinct_tensors(step.leaves)
+        sig = lambda t: (tuple(t.shape), t.dtype, t.device, t.requires_grad)
+        return (step.key, spec, pattern, tuple(map(sig, tensors)), tuple(map(sig, state)))
+
+    def _tree(self, tensors):
+        return tree_unflatten([tensors[p] if isinstance(p, int) else p[1] for p in self.pattern],
+                              self.spec)
+
+    def _call_step(self, state):
+        self.step_calls += 1
+        return self.step(self.make(*state))
+
+    def _forward_body(self):
+        with torch.no_grad():
+            return self._call_step(self.state)
+
+    def _grad_inputs(self):
+        """The step from the static state with its floating fields and the
+        leaves that require grad as autograd leaves: (outputs, inputs)."""
+        fl = set(self.float_in)
+        x = [s.detach().requires_grad_() if i in fl else s for i, s in enumerate(self.state)]
+        out = self._call_step(x)
+        return out, [x[i] for i in self.float_in] + [self.leaves[j] for j in self.diff_leaves]
+
+    def _backward_body(self):
+        with torch.enable_grad():
+            out, ins = self._grad_inputs()
+            if not self.diff_out:
+                return [None] * len(ins)
+            return list(torch.autograd.grad([out[i] for i in self.diff_out], ins, self.gout,
+                                            allow_unused=True))
+
+    def _warm(self):
+        """The first trip, eagerly with autograd on, and a backward of it
+        against zero cotangents; returns the trip's outputs, detached (its
+        autograd graph is gone before a capture starts)."""
+        with torch.enable_grad():
+            out, ins = self._grad_inputs()
+            self.diff_out = [i for i, o in enumerate(out) if o.requires_grad]
+            self.gout = [torch.zeros_like(out[i]) for i in self.diff_out]
+            if self.diff_out:
+                torch.autograd.grad([out[i] for i in self.diff_out], ins, self.gout,
+                                    allow_unused=True)
+            return [o.detach().clone() for o in out]
+
+    def _prepare(self):
+        """The warm-up trip (on the card on a side stream), then, on the
+        card, the two captures. Returns the first trip's outputs."""
+        if not self.cuda:
+            first = self._warm()
+            self.out = [o.clone() for o in first]
+        else:
+            side = torch.cuda.Stream(self.state[0].device)
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                first = self._warm()
+            torch.cuda.current_stream().wait_stream(side)
+            self._capture()
+        return first
+
+    def _capture(self):
+        dev = self.state[0].device
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        pool = torch.cuda.graph_pool_handle()
+        g_f, g_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        counts = [c.captured for c in _COUNTERS]
+        with torch.cuda.graph(g_f, pool=pool):
+            self.out = self._forward_body()
+        mid = [c.captured for c in _COUNTERS]
+        with torch.cuda.graph(g_b, pool=pool):
+            self.gin = self._backward_body()
+        self.graphs = (g_f, g_b)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.per_replay = tuple(
+            [(c, b - a) for c, a, b in zip(_COUNTERS, lo, hi) if b > a]
+            for lo, hi in ((counts, mid), (mid, [c.captured for c in _COUNTERS])))
+
+    def _replay(self, which):
+        self.graphs[which].replay()
+        for counter, n in self.per_replay[which]:
+            counter.launches += n
+
+    def replay_f(self):
+        """G_f from the static state. On the CPU the step's body, its
+        outputs copied into static buffers as a replay leaves them."""
+        if self.cuda:
+            self._replay(0)
+        else:
+            with torch.no_grad():
+                copy_into(self.out, self._forward_body())
+
+    def replay_b(self):
+        """G_b from the static state and cotangents; on the CPU as replay_f."""
+        if self.cuda:
+            self._replay(1)
+            return
+        gin = self._backward_body()
+        if self.gin is None:
+            self.gin = [None if g is None else g.clone() for g in gin]
+        else:
+            with torch.no_grad():
+                copy_into([g for g in self.gin if g is not None], [g for g in gin if g is not None])
+
+    def load(self, call):
+        """Copy a call's leaves into the static ones."""
+        with torch.no_grad():
+            for s, t in zip(self.leaves, call):
+                s.copy_(t)
+        self.loaded = call
+
+    def forward(self, state):
+        with torch.no_grad():
+            copy_into(self.state, state)
+        if self.out is None:
+            return self._prepare()
+        self.replay_f()
+        return [o.clone() for o in self.out]
+
+    def backward(self, call, state, gout):
+        """(gradients of the state's fields, of the leaves that require grad)."""
+        with torch.no_grad():
+            if self.loaded is not call:
+                self.load(call)
+            copy_into(self.state, state)
+            for buf, i in zip(self.gout, self.diff_out):
+                if gout[i] is None:
+                    buf.zero_()
+                else:
+                    buf.copy_(gout[i])
+        self.replay_b()
+        gin = [None if g is None else g.clone() for g in self.gin]
+        g_state = [None] * len(self.state)
+        for k, i in enumerate(self.float_in):
+            g_state[i] = gin[k]
+        return g_state, gin[len(self.float_in):]
+
+    def run(self, step, state, trips: int):
+        """`trips` trips of `step` (built like this trip's: same key) from
+        `state`, each differentiable; returns the last state."""
+        call = tuple(_distinct_tensors(step.leaves)[0])
+        self.load(call)
+        diff = [call[i] for i in self.diff_leaves]
+        for _ in range(trips):
+            state = self.make(*_Trip.apply(self, call, len(diff), *diff, *state))
+        return state
+
+
+
+class _Trip(torch.autograd.Function):
+    """One trip of a GraphedTrip: inputs (the leaves that require grad, then
+    the state's fields), outputs the next state's fields."""
+
+    @staticmethod
+    def forward(ctx, trip, call, n_leaves, *args):
+        state = args[n_leaves:]
+        out = trip.forward(state)
+        ctx.trip, ctx.call = trip, call
+        ctx.save_for_backward(*state)
+        ctx.mark_non_differentiable(*(o for o in out if not o.is_floating_point()))
+        return tuple(out)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gout):
+        g_state, g_leaves = ctx.trip.backward(ctx.call, ctx.saved_tensors, gout)
+        return (None, None, None, *g_leaves, *g_state)
