@@ -44,8 +44,28 @@ Phases (each prints its own lines; any failed check exits non-zero):
               tests/scenes/caustic_sphere.json (5e5 emissions x 10 caustic_factor,
               k = 50) at 512x512, 4 spp, max_bounces 64, with all four kernels'
               launch counts reset before and read after, and no call of the brute
-              fallback allowed; then a profiled 1-spp eye pass, which must run no
-              topk kernel
+              fallback allowed: the emission and the eye pass each capture their
+              step once as a CUDA graph and replay it. Then the same render with
+              every step called eagerly (eager_loops) and graphed again, in turns:
+              stored photon rows, photon counts, launches (traversal one an
+              emission step and two a bounce step, each k-NN kernel two a bounce
+              step), emission and bounce steps and the k-NN counts identical,
+              images within rtol 2e-4, atol 2e-5; the photon pass's and the eye
+              pass's walls each way, and the graphs' pools; then a profiled 1-spp
+              eye pass, graphed and eager, for the device-busy share and the top
+              kernels, which must run no topk kernel; then the graphed cell once
+              more, its photon pass and its 4-spp eye pass each profiled on its
+              own, for each pass's device-busy share and top kernels
+     6b.      the 64x64 camera at 16 spp as one chunk through a StreamedEyePass on
+              phase 6's maps, driven bounce by bounce: the captured k-NN calls
+              (caustic and global) held to the plain version bit for bit after
+              replay 1 and replay 3 (ids, d2, counts, stages, queue counts), then
+              the chunk against the eager loop with phase 6's bars
+     6c.      k = 64, over the kernels' width: the 64x64 camera at 1 spp through a
+              StreamedEyePass on phase 6's maps, whose exact k-NN is the capped
+              search with its brute force at a fixed shape: captured (no k-NN
+              kernel launched, some queries re-answered by the brute force) and
+              held to the eager loop with phase 6's bars
   7. knn      the three k-NN kernels (ring 1, widening rings, whole-map scan)
               against their plain version on the card, on the photon render's two
               maps and three query sets (first-bounce hits of 16384 camera rays,
@@ -373,91 +393,453 @@ def traversal_bound(tk, cbvh, o, d, stats):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations"), tri_visits
 
 
+class CaptureLog:
+    """Records each step captured as a CUDA graph (utils/cuda_graph.CapturedStep)
+    while its patch is on: the function that built the step, the pool its
+    graph reserved, and the launches a replay runs by kernel."""
+
+    def __init__(self):
+        self.made = []
+
+    def patch(self):
+        from mcrt_tpu_torch.utils import cuda_graph
+
+        made = self.made
+
+        class Logged(cuda_graph.CapturedStep):
+            def __init__(self, fn, state):
+                super().__init__(fn, state)
+                made.append((fn.__qualname__.split(".")[0], self.pool_bytes,
+                             {c.name: n for c, n in self.per_replay}))
+
+        return mock.patch.object(cuda_graph, "CapturedStep", Logged)
+
+
+def eager_advance(loop):
+    """utils/cuda_graph.GraphedLoop.advance with the step called eagerly, one
+    launch per op, as before the photon mapper's loops were graphed: each
+    loop's drain then drives its step in a Python loop (one host sync a
+    step) and captures nothing."""
+    loop.state = loop.step(loop.state)
+
+
+def eager_loops():
+    """The patch under which render()'s photon mapper runs its emission and
+    eye pass eagerly (eager_advance)."""
+    from mcrt_tpu_torch.utils import cuda_graph
+
+    return mock.patch.object(cuda_graph.GraphedLoop, "advance", eager_advance)
+
+
 def photon_phase(scene, card, pm_dir):
     """Phase 6: the photon render at full size, through render() as a user calls
-    it, with the photon maps checkpointed into `pm_dir` for phase 7. Returns the
-    k-NN kernels' launches in it, by kernel name."""
+    it, graphed, eagerly (eager_loops) and graphed again in turns; the first run
+    checkpoints its photon maps into `pm_dir` for phase 7. Then a profiled
+    1-spp eye pass each way. Returns the first run's traversal launches, its
+    k-NN kernels' launches by kernel name, and its photon maps."""
     import numpy as np
     import torch
 
     import mcrt_tpu_torch as mt
     from mcrt_tpu_torch.accel import knn_kernel as kk
     from mcrt_tpu_torch.accel import photon_grid as pg
+    from mcrt_tpu_torch.integrator import photon_mapper as pm
     from mcrt_tpu_torch.ops import traverse_kernel as tk
 
     cam = scene.cameras[0]
     cfg = mt.RenderConfig(max_bounces=64, sqrtspp=PM_SQRTSPP, integrator="photon_mapper")
-    stats = {}
-    tk.kernel.launches = 0
-    for kern in kk.KERNELS:
-        kern.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with mock.patch.object(pg, "_exact_fallback", wraps=pg._exact_fallback) as fallback:
-        hdr = mt.render(scene, 0, cfg, stats=stats, checkpoint_dir=pm_dir,
-                        checkpoint_every_s=1e9)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    trav = tk.kernel.launches
-    knn = {kern.name: kern.launches for kern in kk.KERNELS}
     spp = PM_SQRTSPP ** 2
     paths = cam.width * cam.height * spp
     emissions = int(PHOTON_MAP["emissions"] * PHOTON_MAP["caustic_factor"])
-    t_photon = stats["photon_pass_s"]
-    t_eye = wall - t_photon
-    queries, flagged, scanned = (int(stats[key]) for key in ("knn_queries", "knn_flagged",
-                                                             "knn_scanned"))
-    log("photon", f"{cam.width}x{cam.height} {spp} spp, {scene.n_tris} triangles, "
-        f"{emissions} emission paths: wall {wall:.3f} s = photon pass {t_photon:.3f} s "
-        f"({emissions / t_photon / 1e6:.4f} M emissions/s, {stats['emission_steps']} steps) "
-        f"+ eye pass {t_eye:.3f} s ({paths / t_eye / 1e6:.4f} M camera rays/s, "
-        f"{stats['bounce_steps']} bounce steps, {stats['chunks']} chunks) | {card}")
-    log("photon", f"photons: caustic {stats['photons_caustic']}, global {stats['photons_global']}; "
-        f"launches: traversal {trav}, k-NN {knn}; k-NN queries {queries} over "
-        f"{stats['knn_calls']} calls: to stage B {flagged} ({100 * flagged / max(queries, 1):.1f}%), "
-        f"to the whole-map scan {scanned} ({100 * scanned / max(queries, 1):.1f}%); brute "
-        f"fallback calls {fallback.call_count} | {card}")
-    check(trav > 0, "photon", "the traversal kernel was not launched on the photon path")
-    for name, n in knn.items():
-        check(n > 0, "photon", f"the k-NN kernel {name} was not launched on the photon path")
-    check(fallback.call_count == 0, "photon", "the float32 exact k-NN went to the brute fallback")
-    check(hdr.shape == (cam.height, cam.width, 3), "photon", f"bad image shape {hdr.shape}")
-    check(bool(np.isfinite(hdr).all()) and float(hdr.min()) >= 0.0, "photon",
-          "non-finite or negative")
-    check(0.01 < float(hdr.mean()) < 100.0, "photon", f"trivial image mean {hdr.mean()}")
-    log("photon", f"image mean {hdr.mean():.6f} min {hdr.min():.6f} max {hdr.max():.4f}")
+    captures = CaptureLog()
+    real_emit, real_build = pm.emit_photons, pm.build_photon_maps
 
-    # Where the eye pass's device time goes: a profiled 1-spp eye pass (the maps
-    # load from the checkpoint, so nothing is emitted).
+    def one(how, ckpt):
+        """One photon render; returns what the turns compare."""
+        stats, rows, maps = {}, [], []
+
+        def emit(*args, **kwargs):
+            rows.append(real_emit(*args, **kwargs))
+            return rows[-1]
+
+        def build(*args, **kwargs):
+            maps.append(real_build(*args, **kwargs))
+            return maps[-1]
+
+        tk.kernel.launches = 0
+        for kern in kk.KERNELS:
+            kern.launches = 0
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(pm, "emit_photons", emit))
+            stack.enter_context(mock.patch.object(pm, "build_photon_maps", build))
+            fallback = stack.enter_context(
+                mock.patch.object(pg, "_exact_fallback", wraps=pg._exact_fallback))
+            stack.enter_context(eager_loops() if how == "eager" else captures.patch())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hdr = mt.render(scene, 0, cfg, stats=stats, checkpoint_dir=ckpt,
+                            checkpoint_every_s=1e9)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        knn = {kern.name: kern.launches for kern in kk.KERNELS}
+        counts = {key: int(stats[key]) for key in ("knn_queries", "knn_calls", "knn_flagged",
+                                                   "knn_scanned")}
+        t_photon = stats["photon_pass_s"]
+        t_eye = wall - t_photon
+        log("photon", f"{how}: {cam.width}x{cam.height} {spp} spp, {scene.n_tris} triangles, "
+            f"{emissions} emission paths: wall {wall:.3f} s = photon pass {t_photon:.3f} s "
+            f"({emissions / t_photon / 1e6:.4f} M emissions/s, {stats['emission_steps']} steps, "
+            f"{1e3 * t_photon / stats['emission_steps']:.2f} ms a step) + eye pass {t_eye:.3f} s "
+            f"({paths / t_eye / 1e6:.4f} M camera rays/s, {stats['bounce_steps']} bounce steps, "
+            f"{1e3 * t_eye / stats['bounce_steps']:.2f} ms a step, {stats['chunks']} chunks) | {card}")
+        log("photon", f"{how}: photons: caustic {stats['photons_caustic']}, global "
+            f"{stats['photons_global']}; launches: traversal {tk.kernel.launches}, k-NN {knn}; k-NN "
+            f"queries {counts['knn_queries']} over {counts['knn_calls']} calls: to stage B "
+            f"{counts['knn_flagged']} ({100 * counts['knn_flagged'] / max(counts['knn_queries'], 1):.1f}%), "
+            f"to the whole-map scan {counts['knn_scanned']} "
+            f"({100 * counts['knn_scanned'] / max(counts['knn_queries'], 1):.1f}%); brute fallback "
+            f"calls {fallback.call_count} | {card}")
+        check(tk.kernel.launches > 0, "photon", f"{how}: the traversal kernel was not launched")
+        for name, n in knn.items():
+            check(n > 0, "photon", f"{how}: the k-NN kernel {name} was not launched")
+        check(tk.kernel.launches == stats["emission_steps"] + 2 * stats["bounce_steps"]
+              and all(n == 2 * stats["bounce_steps"] for n in knn.values()), "photon",
+              f"{how}: launches {tk.kernel.launches}, {knn} for {stats['emission_steps']} emission "
+              f"and {stats['bounce_steps']} bounce steps")
+        check(fallback.call_count == 0, "photon", "the float32 exact k-NN went to the brute fallback")
+        check(len(rows) == len(maps) == 1, "photon", f"{how}: the maps were not built once")
+        check(hdr.shape == (cam.height, cam.width, 3), "photon", f"bad image shape {hdr.shape}")
+        check(bool(np.isfinite(hdr).all()) and float(hdr.min()) >= 0.0, "photon",
+              "non-finite or negative")
+        check(0.01 < float(hdr.mean()) < 100.0, "photon", f"trivial image mean {hdr.mean()}")
+        return dict(hdr=hdr, wall=wall, photon=t_photon, eye=t_eye, rows=rows[0], maps=maps[0],
+                    knn=knn, counts=counts, trav=tk.kernel.launches,
+                    same={key: stats[key] for key in ("photons_caustic", "photons_global",
+                                                       "emission_steps", "bounce_steps", "chunks")})
+
+    # The checkpoint key hashes the scene's JSON once (Scene.content_hash, then
+    # cached): taken here, so that no run's wall holds it. Each run checkpoints
+    # into a directory of its own, so each emits: the first into pm_dir.
+    t0 = time.perf_counter()
+    scene.content_hash()
+    log("photon", f"the checkpoint key's scene hash, once, outside the walls: "
+        f"{time.perf_counter() - t0:.3f} s")
+    with tempfile.TemporaryDirectory() as d2, tempfile.TemporaryDirectory() as d3:
+        runs = [one("graphed", pm_dir), one("eager", d2), one("graphed again", d3)]
+    first = runs[0]
+    log("photon", f"image mean {first['hdr'].mean():.6f} min {first['hdr'].min():.6f} max "
+        f"{first['hdr'].max():.4f}")
+    for (name, pool, per) in captures.made:
+        log("photon", f"captured {name}: pool {pool / 2**20:.1f} MiB reserved, launches a replay "
+            f"{per} | {card}")
+    check(sorted({name for name, _, _ in captures.made}) == ["_make_emission_step",
+                                                              "_make_eye_step"],
+          "photon", f"the graphed runs captured {[m[0] for m in captures.made]}")
+    for other, how in ((runs[1], "eager"), (runs[2], "graphed again")):
+        bad, worst = images_apart(first["hdr"], other["hdr"])
+        rows_same = all(np.array_equal(a, b) for a, b in zip(first["rows"][0] + first["rows"][1],
+                                                             other["rows"][0] + other["rows"][1]))
+        log("photon", f"graphed against {how}: stored rows identical {rows_same}; {bad} image "
+            f"elements outside rtol {IMG_RTOL} atol {IMG_ATOL}, largest |d| {worst:.3g}; launches, "
+            f"steps, photon and k-NN counts identical "
+            f"{(first['trav'], first['knn'], first['same'], first['counts']) == (other['trav'], other['knn'], other['same'], other['counts'])} | {card}")
+        check(rows_same, "photon", f"graphed and {how} emissions stored different rows")
+        check(bad == 0, "photon", f"the graphed and {how} photon renders disagree")
+        check(first["same"] == other["same"], "photon",
+              f"photon counts or steps differ: {first['same']} and {other['same']}")
+        check((first["trav"], first["knn"]) == (other["trav"], other["knn"]), "photon",
+              f"launches differ: {first['trav']} {first['knn']}, {other['trav']} {other['knn']}")
+        check(first["counts"] == other["counts"], "photon",
+              f"k-NN counts differ: {first['counts']} and {other['counts']}")
+    log("photon", "walls in turns (graphed, eager, graphed): render "
+        + ", ".join(f"{r['wall']:.3f}" for r in runs) + " s; photon pass "
+        + ", ".join(f"{r['photon']:.3f}" for r in runs) + " s; eye pass "
+        + ", ".join(f"{r['eye']:.3f}" for r in runs) + f" s | {card}")
+
+    # Where the eye pass's device time goes: a profiled 1-spp eye pass each way
+    # (the maps load from the checkpoint, so nothing is emitted).
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for f in pathlib.Path(pm_dir).glob("film_*.npz"):
-        f.unlink()
     cfg1 = dataclasses.replace(cfg, sqrtspp=1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        mt.render(scene, 0, cfg1, checkpoint_dir=pm_dir, checkpoint_every_s=1e9)
+    walls1 = {}
+    for how in ("graphed", "eager"):
+        with contextlib.ExitStack() as stack:    # unprofiled, for the share's wall
+            if how == "eager":
+                stack.enter_context(eager_loops())
+            for f in pathlib.Path(pm_dir).glob("film_*.npz"):
+                f.unlink()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mt.render(scene, 0, cfg1, checkpoint_dir=pm_dir, checkpoint_every_s=1e9)
+            torch.cuda.synchronize()
+            walls1[how] = time.perf_counter() - t1
+        for f in pathlib.Path(pm_dir).glob("film_*.npz"):
+            f.unlink()
         torch.cuda.synchronize()
-        wall1 = time.perf_counter() - t1
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)
-    dev_us = sum(dev_time(e) for e in ev)
-    topk = [e.key for e in ev if "topk" in e.key.lower()]
-    check(not topk, "photon", f"topk kernels ran in the eye pass: {topk[:3]}")
-    if dev_us > 0:
-        part = lambda name: sum(dev_time(e) for e in ev if name in e.key) / dev_us
-        knn_share = ", ".join(f"{k.name} {100 * part(k.name):.1f}%" for k in kk.KERNELS)
-        log("photon", f"1-spp profiled eye pass: wall {wall1:.3f} s (profiler on), device busy "
-            f"{dev_us / 1e6:.3f} s ({100 * dev_us / 1e6 / wall1:.1f}% of wall); k-NN kernels "
-            f"{knn_share}; traversal {100 * part('traverse_kernel'):.1f}% of device time; no "
-            f"topk kernels | {card}")
-        for e in sorted(ev, key=lambda e: -dev_time(e))[:10]:
-            log("photon", f"  device time {dev_time(e) / 1e3:10.1f} ms x{e.count:7d}  {e.key[:90]}")
-    else:
-        log("photon", "device share: not measured (the profiler recorded no device time)")
-    return knn
+        with contextlib.ExitStack() as stack:
+            if how == "eager":
+                stack.enter_context(eager_loops())
+            prof = stack.enter_context(profile(activities=[ProfilerActivity.CPU,
+                                                           ProfilerActivity.CUDA]))
+            t1 = time.perf_counter()
+            mt.render(scene, 0, cfg1, checkpoint_dir=pm_dir, checkpoint_every_s=1e9)
+            torch.cuda.synchronize()
+            wall1 = time.perf_counter() - t1
+        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)
+        dev_us = sum(dev_time(e) for e in ev)
+        topk = [e.key for e in ev if "topk" in e.key.lower()]
+        check(not topk, "photon", f"topk kernels ran in the eye pass: {topk[:3]}")
+        if dev_us > 0:
+            part = lambda name: sum(dev_time(e) for e in ev if name in e.key) / dev_us
+            knn_share = ", ".join(f"{k.name} {100 * part(k.name):.1f}%" for k in kk.KERNELS)
+            log("photon", f"1-spp profiled eye pass, {how}: wall {wall1:.3f} s (profiler on; "
+                f"{walls1[how]:.3f} s off), device busy {dev_us / 1e6:.3f} s "
+                f"({100 * dev_us / 1e6 / wall1:.1f}% of the profiled wall, "
+                f"{100 * dev_us / 1e6 / walls1[how]:.1f}% of the unprofiled); k-NN kernels "
+                f"{knn_share}; traversal {100 * part('traverse_kernel'):.1f}% of device time; no "
+                f"topk kernels | {card}")
+            for e in sorted(ev, key=lambda e: -dev_time(e))[:8]:
+                log("photon", f"  {how}: device time {dev_time(e) / 1e3:10.1f} ms x{e.count:7d}  "
+                    f"{e.key[:90]}")
+        else:
+            log("photon", f"device share, {how}: not measured (the profiler recorded no device time)")
+        del prof, ev
+
+    # The graphed cell once more (emitting anew: no checkpoint), its photon pass
+    # and its 4-spp eye pass each under a CUDA-only profiler of its own: the
+    # photon pass from the emission's first step (its five chunks, the first
+    # with its eager step and capture) to the rows' return, the eye pass from
+    # the maps' return to render()'s.
+    passes = {}
+
+    def emit_profiled(*args, **kwargs):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = real_emit(*args, **kwargs)
+            torch.cuda.synchronize()
+            passes["photon pass"] = [prof, time.perf_counter() - t1]
+        return out
+
+    def build_then_profile(*args, **kwargs):
+        maps = real_build(*args, **kwargs)
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+        passes["eye pass"] = [prof, time.perf_counter()]
+        return maps
+
+    with mock.patch.object(pm, "emit_photons", emit_profiled), \
+            mock.patch.object(pm, "build_photon_maps", build_then_profile):
+        hdr = mt.render(scene, 0, cfg)
+        torch.cuda.synchronize()
+        passes["eye pass"][1] = time.perf_counter() - passes["eye pass"][1]
+        passes["eye pass"][0].__exit__(None, None, None)
+    bad, worst = images_apart(first["hdr"], hdr)
+    check(bad == 0, "photon", f"the profiled graphed render disagrees with the first ({bad} elements)")
+    unprofiled = {"photon pass": [r["photon"] for r in (runs[0], runs[2])],
+                  "eye pass": [r["eye"] for r in (runs[0], runs[2])]}
+    for name, (prof, wall) in passes.items():
+        by_name = device_ns_by_name(prof)
+        dev_s = sum(by_name.values()) / 1e9
+        if dev_s > 0:
+            log("photon", f"profiled graphed {name} ({spp} spp): wall {wall:.3f} s (profiler on), "
+                f"device busy {dev_s:.3f} s ({100 * dev_s / wall:.1f}% of the profiled wall, "
+                f"{100 * dev_s / max(unprofiled[name]):.1f}-{100 * dev_s / min(unprofiled[name]):.1f}% "
+                f"of the graphed turns' {min(unprofiled[name]):.3f}-{max(unprofiled[name]):.3f} s) | {card}")
+            for kname, ns in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+                log("photon", f"  {name}: device time {ns / 1e6:10.1f} ms  {kname[:90]}")
+        else:
+            log("photon", f"profiled graphed {name}: device share not measured (the profiler "
+                "recorded no device time)")
+    del passes
+    return first["trav"], first["knn"], first["maps"]
+
+
+class KnnRecorder:
+    """Wraps knn_kernel.knn: keeps the grid, the queries, the mask and the
+    kernels' outputs of the calls numbered in `at` (0 = the first call), so
+    that a captured call, whose tensors hold the last replay's values, can be
+    held to knn_plain. Keeps references only: nothing syncs the host."""
+
+    def __init__(self, kk, at):
+        self.real, self.at, self.calls, self.seen = kk.knn, set(at), 0, {}
+
+    def __call__(self, grid, arrays, points, k, mask=None, evaluated=None):
+        out = self.real(grid, arrays, points, k, mask=mask, evaluated=evaluated)
+        if self.calls in self.at:
+            self.seen[self.calls] = (grid, arrays, points, k, mask, out)
+        self.calls += 1
+        return out
+
+
+def knn_held_to_plain(kk, recorder, what, card, unmasked):
+    """Each recorded k-NN call against knn_plain on its grid, queries and
+    mask: ids, d2, counts, stages and queue counts bit-identical. Adds each
+    call's unmasked queries to `unmasked` (a call may have none at a bounce)."""
+    import torch
+
+    check(len(recorder.seen) == len(recorder.at), "photon",
+          f"{what}: recorded {len(recorder.seen)} of the calls {sorted(recorder.at)}")
+    for i, (grid, arrays, points, k, mask, got) in sorted(recorder.seen.items()):
+        want = kk.knn_plain(grid, arrays, points, k, mask)
+        torch.cuda.synchronize()
+        same = {name: torch.equal(getattr(got, name), getattr(want, name))
+                for name in ("idx", "d2", "valid", "stage", "queued")}
+        q = int(mask.sum())
+        unmasked[i] = unmasked.get(i, 0) + q
+        log("photon", f"{what}, k-NN call {i}: {points.shape[0]} queries, {q} unmasked, "
+            f"{grid.n_photons} photons; to stage B {int(got.queued[0])}, to the scan "
+            f"{int(got.queued[1])}; kernels vs plain bit-identical {same} | {card}")
+        check(all(same.values()), "photon", f"{what}, call {i}: kernels and plain version differ")
+
+
+def photon_replay_phase(scene, maps, card):
+    """Phase 6b: the 64x64 camera at 16 spp (65,536 paths through render()'s
+    16,384 lanes, so lanes reload paths as theirs end) as one chunk through a
+    StreamedEyePass on phase 6's maps, driven bounce by bounce with
+    knn_kernel.knn recorded:
+    bounce 0 runs eagerly (calls 0 and 1), the capture records calls 2 and 3
+    (the caustic and the global estimate) and bounce 1 is its first replay.
+    After replays 1 and 3 the two captured calls are held to knn_plain (and
+    after later replays, until each call has held unmasked queries); then the
+    chunk runs to its end and is held to an eager run of the same chunk."""
+    import numpy as np
+    import torch
+
+    import mcrt_tpu_torch as mt
+    from mcrt_tpu_torch.accel import knn_kernel as kk
+    from mcrt_tpu_torch.integrator import photon_mapper as pm
+    from mcrt_tpu_torch.ops import cluster_bvh
+
+    dev = torch.device("cuda", 0)
+    cam = scene.cameras[1]
+    spp = 16
+    n = cam.width * cam.height * spp
+    lanes = min(mt.RenderConfig().lanes, n)
+    tables = scene.tables(np.float32, dev)
+    meta = scene.meta()
+    ifn = cluster_bvh.make_intersect_fn(tables, meta, scene.build_cluster_bvh(np.float32, dev))
+    pmcfg = pm.PMConfig.from_json(scene.photon_map_config)
+    make = lambda: pm.StreamedEyePass(tables, meta, pmcfg, maps, cam, spp, n, lanes,
+                                      intersect_fn=ifn)
+    for kern in kk.KERNELS:
+        kern.launches = kern.captured = 0
+    rec = KnnRecorder(kk, at=(2, 3))
+    tr = make()
+    try:
+        with mock.patch.object(kk, "knn", rec):
+            tr.begin(0)
+            tr.advance()
+            tr.advance()
+        torch.cuda.synchronize()
+        check(tr.graph is not None, "photon", "6b: the eye step was not captured at bounce 1")
+        counts = [(kern.launches, kern.captured) for kern in kk.KERNELS]
+        check(counts == [(4, 2)] * 3, "photon", f"6b: after bounce 1, k-NN (launches, captured) "
+              f"{counts} (want 2 eager + 2 replayed, and 2, each)")
+        log("photon", f"6b graph of one eye-pass bounce step at {lanes} lanes: pool "
+            f"{tr.graph.pool_bytes / 2**20:.1f} MiB reserved, launches a replay "
+            f"{ {c.name: m for c, m in tr.graph.per_replay} } | {card}")
+        unmasked = {}
+        knn_held_to_plain(kk, rec, "6b replay 1 (bounce 1)", card, unmasked)
+        tr.advance()
+        tr.advance()
+        torch.cuda.synchronize()
+        knn_held_to_plain(kk, rec, "6b replay 3 (bounce 3)", card, unmasked)
+        steps = 4
+        # A global estimate needs two non-dirac vertices in a row, so its call
+        # may have no query unmasked at bounces 1 and 3: replay on to the
+        # first bounce where it has some, and hold that one too.
+        while min(unmasked.values()) == 0 and steps < 16 and bool(tr.state.alive.any()):
+            tr.advance()
+            steps += 1
+            torch.cuda.synchronize()
+            knn_held_to_plain(kk, rec, f"6b replay {steps - 1} (bounce {steps - 1})", card,
+                              unmasked)
+        check(min(unmasked.values()) > 0, "photon",
+              f"6b: a held k-NN call had no query unmasked: {unmasked}")
+        steps += tr.drain()
+        got = tr.output(tr.state).clone()
+        got_knn = tr.state.knn.clone()
+    finally:
+        tr.close()
+    eager = make()
+    try:
+        with eager_loops():
+            eager.begin(0)
+            steps_e = eager.drain()
+        want, want_knn = eager.output(eager.state), eager.state.knn
+        bad, worst = images_apart(got.cpu().numpy(), want.cpu().numpy())
+        log("photon", f"6b 64x64 {spp} spp chunk, graphed vs eager: {bad} elements outside rtol "
+            f"{IMG_RTOL} atol {IMG_ATOL}, largest |d| {worst:.3g}; bounce steps {steps} and "
+            f"{steps_e}; k-NN [queries, flagged, scanned] {got_knn.tolist()} and "
+            f"{want_knn.tolist()} | {card}")
+        check(bad == 0 and steps == steps_e and torch.equal(got_knn, want_knn), "photon",
+              "6b: the graphed eye pass and the eager loop disagree")
+        check(float(got.sum()) > 0.0, "photon", "6b: a black chunk")
+    finally:
+        eager.close()
+
+
+def photon_wide_k_phase(scene, maps, card):
+    """Phase 6c: k = 64, over the k-NN kernels' width (KPAD), so the exact
+    k-NN is the capped search with its brute force, which computes every row
+    at a fixed shape and syncs nothing. The 64x64 camera at 1 spp as one chunk
+    through a StreamedEyePass on phase 6's maps, graphed and eagerly: the step
+    captured, no k-NN kernel launched, some queries re-answered by the brute
+    force, and the chunk held to the eager loop with phase 6's bars."""
+    import numpy as np
+    import torch
+
+    from mcrt_tpu_torch.accel import knn_kernel as kk
+    from mcrt_tpu_torch.integrator import photon_mapper as pm
+    from mcrt_tpu_torch.ops import cluster_bvh
+
+    dev = torch.device("cuda", 0)
+    cam = scene.cameras[1]
+    n = cam.width * cam.height
+    tables = scene.tables(np.float32, dev)
+    meta = scene.meta()
+    ifn = cluster_bvh.make_intersect_fn(tables, meta, scene.build_cluster_bvh(np.float32, dev))
+    pmcfg = pm.PMConfig.from_json(scene.photon_map_config, k_nearest_photons=64)
+    check(pmcfg.k_nearest_photons > kk.KPAD, "photon", "6c: k is within the kernels' width")
+    out = {}
+    for how in ("graphed", "eager"):
+        for kern in kk.KERNELS:
+            kern.launches = 0
+        tr = pm.StreamedEyePass(tables, meta, pmcfg, maps, cam, 1, n, n, intersect_fn=ifn)
+        stats = {}
+        try:
+            with contextlib.ExitStack() as stack:
+                if how == "eager":
+                    stack.enter_context(eager_loops())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = tr(0, stats).cpu().numpy()
+                wall = time.perf_counter() - t0
+            captured = tr.graph is not None
+            pool = tr.graph.pool_bytes if captured else 0
+        finally:
+            tr.close()
+        knn = {key: int(v) for key, v in stats.items() if key.startswith("knn_")}
+        launched = sum(kern.launches for kern in kk.KERNELS)
+        log("photon", f"6c k = 64, 64x64 1 spp, {how}: {wall:.3f} s, {stats['bounce_steps']} bounce "
+            f"steps, captured {captured} (pool {pool / 2**20:.1f} MiB), k-NN {knn}, k-NN kernel "
+            f"launches {launched} | {card}")
+        check(captured == (how == "graphed"), "photon", f"6c {how}: captured {captured}")
+        check(launched == 0, "photon", f"6c {how}: a k-NN kernel ran at k = 64")
+        check(knn["knn_flagged"] > 0, "photon", f"6c {how}: the brute force re-answered no query")
+        out[how] = (img, knn, stats["bounce_steps"])
+    (got, kg, sg), (want, ke, se) = out["graphed"], out["eager"]
+    bad, worst = images_apart(got, want)
+    log("photon", f"6c graphed vs eager: {bad} elements outside rtol {IMG_RTOL} atol {IMG_ATOL}, "
+        f"largest |d| {worst:.3g} | {card}")
+    check(bad == 0 and kg == ke and sg == se, "photon",
+          "6c: the graphed eye pass at k = 64 and the eager loop disagree")
+    check(float(got.sum()) > 0.0 and bool(np.isfinite(got).all()), "photon", "6c: a black or "
+          "non-finite chunk")
 
 
 def box_table(grid):
@@ -2129,7 +2511,10 @@ def main() -> int:
 
     # ---- 6-8. the photon mapper ----
     with tempfile.TemporaryDirectory(prefix="chip_smoke_photons_") as pm_dir:
-        pm_launches = photon_phase(scene, card, pm_dir)
+        pm_trav, pm_launches, pm_maps = photon_phase(scene, card, pm_dir)
+        photon_replay_phase(scene, pm_maps, card)
+        photon_wide_k_phase(scene, pm_maps, card)
+        del pm_maps
         knn_rows = knn_phase(scene, cam, card, rng, pm_dir, parent_knn_lib)
     golden_phase(card)
 
@@ -2158,6 +2543,7 @@ def main() -> int:
         "source": "mcrt_tpu_torch/csrc/traverse.cu",
         "replaces": "mcrt_tpu/ops/traverse_kernel.py:53",
         "launches": launches,   # the path tracer's main path (phase 4)
+        "photon_launches": pm_trav,   # the photon mapper's main path (phase 6)
         "train_launches": train_launches,   # phase 9a's train steps, forward and recompute
         "sharded_train_launches": multi_launches,   # phase 10a's sharded train step
         "bench_launches": bench_launches,   # python -m mcrt_tpu_torch.bench, both processes (11a)

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..ops.traverse_kernel import compile_source
+from ..utils.cuda_graph import LaunchCounter
 
 KPAD = 56            # the most neighbours a query can ask for (the TPU kernel's output width)
 CELL_BUDGET = 32768  # cells a stage-B ring box may hold (32^3); past it, the whole-map scan
@@ -67,14 +68,6 @@ _DELTA_REL = 2.0 ** -20     # DELTA as a share of the grid's largest coordinate
 _SRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "knn.cu"
 
 
-class _Kernel:
-    """One CUDA kernel of csrc/knn.cu: its launch count."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
-
-
 class _Library:
     """The built CUDA library (loaded at first use) and its ptxas report."""
 
@@ -84,9 +77,11 @@ class _Library:
 
 
 library = _Library()
-ring1 = _Kernel("knn_ring1")      # stage A
-rings = _Kernel("knn_rings")      # stage B: widening rings
-scan = _Kernel("knn_scan")        # stage B: the whole-map scan
+# Each kernel's launches that ran (`launches`: eagerly or in a replay of a
+# CUDA graph) and that were recorded into a graph under capture (`captured`).
+ring1 = LaunchCounter("knn_ring1")      # stage A
+rings = LaunchCounter("knn_rings")      # stage B: widening rings
+scan = LaunchCounter("knn_scan")        # stage B: the whole-map scan
 KERNELS = (ring1, rings, scan)
 
 
@@ -196,7 +191,10 @@ def knn(grid, arrays, points, k: int, mask=None, evaluated=None) -> KnnResult:
     non-empty grid and k <= KPAD. CUDA tensors go to the CUDA kernels, CPU
     tensors to the plain version; any other device raises. On the card the
     three kernels run back to back on the current stream, with no host sync:
-    stage B's kernels read their queues' lengths on the device.
+    stage B's kernels read their queues' lengths on the device, which are
+    zeroed on the device too, so a call captured into a CUDA graph is right
+    at every replay (the library must be built and its launch shape known
+    before a capture: an eager call does both).
 
     `evaluated`, for measurement on the card: a (Q,) int32 CUDA tensor that
     receives the photons each query's kernels evaluated (the plain version,
@@ -247,10 +245,10 @@ def knn(grid, arrays, points, k: int, mask=None, evaluated=None) -> KnnResult:
     return _finish(k, Q, points.dtype, idx, d2, cnt, stage, queued)
 
 
-def _check(err: int, kern: _Kernel):
+def _check(err: int, kern: LaunchCounter):
     if err != 0:
         raise RuntimeError(f"{kern.name} launch failed: error {err}")
-    kern.launches += 1
+    kern.count()
 
 
 # ---------------------------------------------------------------------------------

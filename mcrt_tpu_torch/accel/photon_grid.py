@@ -17,14 +17,17 @@ the fastest axis. A query reads the photons of the 27 cells around it:
   device with no host sync. Otherwise (float64, k > KPAD) it is the capped
   search, whose flagged queries (fewer than k photons within cell_size, or
   a subsampled cell touched) are re-answered by `_knn_brute` over the whole
-  map; only the flagged rows are computed, where the JAX package computes
-  every row and selects.
+  map. The brute force computes every row and the flagged ones are
+  selected, as in the JAX package, whose `lax.cond` skips it when no row is
+  flagged; here it always runs, so that this path too syncs nothing and
+  can be captured into a CUDA graph.
 
 On the card, float64 queries raise in exact mode: the kernels take float32.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import pathlib
 from typing import NamedTuple
 
@@ -220,24 +223,15 @@ def _knn_kernel_ok(grid: PhotonGrid, dtype, k: int) -> bool:
     return grid.n_photons > 0 and dtype == torch.float32 and k <= knn_kernel.KPAD
 
 
-def _exact_fallback(arrays, points, k, N, res, needs, stats):
-    """Re-answer the flagged queries with `_knn_brute`, computing their rows only.
-    With a `stats` dict, adds "knn_flagged" and "knn_calls"."""
+def _exact_fallback(arrays, points, k, N, res, needs):
+    """Re-answer the flagged queries `needs` with `_knn_brute`: every row is
+    computed and the flagged ones are selected, as the JAX package does, so
+    that nothing syncs the host (a captured step runs this)."""
     d2k, idxk, valid, wk = res
-    rows = torch.nonzero(needs).squeeze(1)     # one host sync per call
-    n_flag = int(rows.shape[0])
-    if stats is not None:
-        stats["knn_flagged"] = stats.get("knn_flagged", 0) + n_flag
-        stats["knn_calls"] = stats.get("knn_calls", 0) + 1
-    if n_flag == 0:
-        return d2k, idxk, valid, wk
-    bd2, bix, bval = _knn_brute(arrays, points[rows], k, N)
-    d2k, idxk, valid, wk = d2k.clone(), idxk.clone(), valid.clone(), wk.clone()
-    d2k[rows] = bd2.to(d2k.dtype)
-    idxk[rows] = bix
-    valid[rows] = bval
-    wk[rows] = 1.0
-    return d2k, idxk, valid, wk
+    bd2, bix, bval = _knn_brute(arrays, points, k, N)
+    m = needs[:, None]
+    return (torch.where(m, bd2.to(d2k.dtype), d2k), torch.where(m, bix, idxk),
+            torch.where(m, bval, valid), torch.where(m, torch.ones_like(wk), wk))
 
 
 def knn(grid: PhotonGrid, arrays: PhotonGridArrays, points, k: int, mask=None,
@@ -247,37 +241,72 @@ def knn(grid: PhotonGrid, arrays: PhotonGridArrays, points, k: int, mask=None,
     Returns (d2 (Q,k), idx (Q,k) int32, valid (Q,k), w (Q,k) flux weights);
     invalid slots have d2 = +inf. `mask` (Q,) bool marks the queries whose
     result matters: masked-off lanes are not searched in exact mode. With a
-    `stats` dict, exact mode adds "knn_queries" (an int or a device count),
-    "knn_calls", and "knn_flagged": on the staged k-NN's path the queries that
-    went on to its stage B, and "knn_scanned" those that reached its
-    whole-map scan (device counts: read them once, after the render); on the
-    capped path the queries re-answered by the brute force (see
-    _exact_fallback)."""
+    `stats` dict, exact mode adds one call and knn_counted's counts
+    (add_knn_stats). The counts are device tensors: read them once, after
+    the render."""
+    if exact:
+        res, counts = knn_counted(grid, arrays, points, k, mask)
+        if stats is not None:
+            add_knn_stats(stats, counts)
+        return res
+    return _knn_capped(grid, arrays, points, k)[0]
+
+
+def knn_counted(grid: PhotonGrid, arrays: PhotonGridArrays, points, k: int, mask=None):
+    """knn(exact=True) with its counts as one (3,) int64 tensor on the
+    queries' device, [queries, flagged, scanned], in place of a stats dict, so
+    that a loop can carry them in its state (a captured step's Python runs
+    once, at the capture). `flagged` counts, on the staged k-NN's path, the
+    queries that went on to its stage B, and on the capped path those that
+    the brute force re-answered; `scanned` the queries that reached the
+    staged k-NN's whole-map scan (0 on the capped path). Nothing syncs the
+    host. Returns ((d2, idx, valid, w), counts)."""
+    dtype = points.dtype
+    dev = points.device
+    if dev.type == "cuda" and dtype != torch.float32:
+        raise ValueError("knn(exact=True) on the card takes float32 queries "
+                         "(the k-NN kernels are float32)")
+    Q = points.shape[0]
+    queries = (torch.full((1,), Q, dtype=torch.int64, device=dev) if mask is None
+               else mask.sum().view(1))
+    if _knn_kernel_ok(grid, dtype, k):
+        r = knn_kernel.knn(grid, arrays, points, k, mask=mask)
+        return (r.d2, r.idx, r.valid, r.w), torch.cat([queries, r.queued.to(torch.int64)])
+    res, touched_trunc = _knn_capped(grid, arrays, points, k)
+    N = grid.n_photons
+    flagged = torch.zeros((1,), dtype=torch.int64, device=dev)
+    if N > k:
+        inexact = touched_trunc | (res[2].sum(dim=1) < k)
+        if mask is not None:
+            inexact = inexact & mask
+        res = _exact_fallback(arrays, points, k, N, res, inexact)
+        flagged = inexact.sum().view(1)
+    return res, torch.cat([queries, flagged, torch.zeros_like(flagged)])
+
+
+def add_knn_stats(stats: dict, counts, calls: int = 1):
+    """Add `calls` exact k-NN calls and their summed `counts` [queries,
+    flagged, scanned] (knn_counted) to `stats`: "knn_calls", "knn_queries",
+    "knn_flagged" and "knn_scanned"."""
+    for key, value in (("knn_queries", counts[0]), ("knn_calls", calls),
+                       ("knn_flagged", counts[1]), ("knn_scanned", counts[2])):
+        stats[key] = stats.get(key, 0) + value
+
+
+def _knn_capped(grid: PhotonGrid, arrays: PhotonGridArrays, points, k: int):
+    """The capped one-ring k-NN: ((d2, idx, valid, w), touched_trunc (Q,),
+    the queries that read a subsampled cell)."""
     dtype = points.dtype
     Q = points.shape[0]
     N = grid.n_photons
-    if exact and stats is not None:
-        stats["knn_queries"] = stats.get("knn_queries", 0) + (Q if mask is None else mask.sum())
-    if exact and points.device.type == "cuda" and dtype != torch.float32:
-        raise ValueError("knn(exact=True) on the card takes float32 queries "
-                         "(the k-NN kernels are float32)")
-    if exact and _knn_kernel_ok(grid, dtype, k):
-        r = knn_kernel.knn(grid, arrays, points, k, mask=mask)
-        if stats is not None:
-            stats["knn_calls"] = stats.get("knn_calls", 0) + 1
-            stats["knn_flagged"] = stats.get("knn_flagged", 0) + r.queued[0]
-            stats["knn_scanned"] = stats.get("knn_scanned", 0) + r.queued[1]
-        return r.d2, r.idx, r.valid, r.w
-
     dev = points.device
     M = grid.m_per_cell
     nx, ny, nz = grid.dims
-    bb_min = torch.as_tensor(grid.bb_min, dtype=dtype, device=dev)
     inv_cell = 1.0 / grid.cell_size
-    dimv = torch.as_tensor(grid.dims, dtype=torch.int32, device=dev)
-
-    ci = torch.floor((points - bb_min) * inv_cell).to(torch.int32)
-    ci = torch.minimum(torch.clamp(ci, min=0), dimv - 1)
+    # The grid's constants enter as Python scalars: a tensor built from host
+    # values would synchronise the device, which a captured step may not.
+    ci = [torch.clamp(torch.floor((points[:, a] - grid.bb_min[a]) * inv_cell).to(torch.int32),
+                      0, n - 1) for a, n in enumerate(grid.dims)]
 
     arange_m = torch.arange(M, dtype=torch.int32, device=dev)
     # The one-ring holds up to 27*M candidates, so the running top-k width is
@@ -294,10 +323,11 @@ def knn(grid: PhotonGrid, arrays: PhotonGridArrays, points, k: int, mask=None,
     for gstart in range(0, 27, group_cells):
         d2_parts, ix_parts, w_parts = [], [], []
         for off in offsets[gstart:gstart + group_cells]:
-            cc = ci + torch.as_tensor(off, dtype=torch.int32, device=dev)
-            in_grid = ((cc >= 0) & (cc < dimv)).all(dim=-1)
-            cs = torch.minimum(torch.clamp(cc, min=0), dimv - 1).to(torch.int64)
-            lin = (cs[:, 0] * ny + cs[:, 1]) * nz + cs[:, 2]
+            cc = [c + o for c, o in zip(ci, off)]
+            in_grid = functools.reduce(torch.logical_and,
+                                       [(c >= 0) & (c < n) for c, n in zip(cc, grid.dims)])
+            cs = [torch.clamp(c, 0, n - 1).to(torch.int64) for c, n in zip(cc, grid.dims)]
+            lin = (cs[0] * ny + cs[1]) * nz + cs[2]
             s = arrays.cell_start[lin]
             e = arrays.cell_start[lin + 1]
             occ = e - s
@@ -334,11 +364,4 @@ def knn(grid: PhotonGrid, arrays: PhotonGridArrays, points, k: int, mask=None,
         wk = torch.nn.functional.pad(wk, (0, pad), value=1.0)
         valid = torch.nn.functional.pad(valid, (0, pad))
 
-    if not exact or N <= k:
-        return d2k, idxk, valid, wk
-
-    want = min(k, N)
-    inexact = touched_trunc | (valid.sum(dim=1) < want)
-    if mask is not None:
-        inexact = inexact & mask
-    return _exact_fallback(arrays, points, k, N, (d2k, idxk, valid, wk), inexact, stats)
+    return (d2k, idxk, valid, wk), touched_trunc

@@ -491,7 +491,7 @@ def trace(
     return st.radiance
 
 
-class StreamedTrace:
+class StreamedTrace(cuda_graph.GraphedLoop):
     """Streamed traces of chunks of `n_paths` camera paths through `lanes`
     lanes: the bounce step is built once and serves every chunk of that size,
     since a chunk's first path rides in the state (PathState.start, a device
@@ -504,9 +504,10 @@ class StreamedTrace:
     On a CUDA device the first bounce runs eagerly (it builds the kernels and
     settles the allocator) and leaves its result in the static state buffers;
     the second captures one bounce step over those buffers as a CUDA graph
-    (utils/cuda_graph.CapturedStep); from then on, in this chunk and the later
-    ones, a bounce is one replay. A capture that fails raises. On the CPU every
-    bounce calls the step eagerly. `close()` releases the graph and its pool.
+    (utils/cuda_graph.GraphedLoop, CapturedStep); from then on, in this chunk
+    and the later ones, a bounce is one replay. A capture that fails raises. On
+    the CPU every bounce calls the step eagerly. `close()` releases the graph
+    and its pool.
 
     begin(start) and advance() are the same run one bounce at a time, and
     `state` is the state after the last bounce (on the card, the static
@@ -525,11 +526,8 @@ class StreamedTrace:
         self.regen = RegenCfg(cam=cam, consts=cam_mod.camera_consts(cam, dtype, tables.tri_v0.device),
                               width=cam.width, spp=spp, n_paths=n_paths, lanes=lanes,
                               strided=strided, pixel_sums=pixel_sums, fixed=fixed)
-        self.step = make_bounce_step(tables, meta, cfg, intersect_fn, regen=self.regen)
+        super().__init__(make_bounce_step(tables, meta, cfg, intersect_fn, regen=self.regen))
         self.n_out = (n_paths // spp) if pixel_sums else n_paths
-        self.state: PathState | None = None
-        self.graph = None          # the CapturedStep, once captured
-        self._warm = False         # the first bounce ran eagerly
 
     def initial(self, start: int) -> PathState:
         """A new PathState for the chunk whose first path is `start`: the
@@ -573,44 +571,15 @@ class StreamedTrace:
     def begin(self, start: int):
         """Load the chunk whose first path is `start` (on the card, into the
         static buffers, which the first chunk allocates)."""
-        init = self.initial(start)
-        if init.origin.device.type != "cuda":
-            self.state = init
-        elif self.state is None:
-            # Distinct buffers: _init_state shares one zero tensor among fields.
-            self.state = PathState(*(x.clone() for x in init))
-        else:
-            cuda_graph.copy_into(self.state, init)
-
-    def advance(self):
-        """One bounce step of the loaded chunk."""
-        if self.state.origin.device.type != "cuda":
-            self.state = self.step(self.state)
-        elif self.graph is not None:
-            self.graph.replay()
-        elif not self._warm:
-            cuda_graph.copy_into(self.state, self.step(self.state))
-            self._warm = True
-        else:
-            self.graph = cuda_graph.CapturedStep(self.step, self.state)
-            self.graph.replay()
+        self.load(self.initial(start))
 
     def __call__(self, start: int, stats: dict | None = None):
         self.begin(start)
-        steps = 0
-        while bool(self.state.alive.any()):   # one host sync per bounce
-            self.advance()
-            steps += 1
+        steps = self.drain()
         if stats is not None:
             stats["bounce_steps"] = stats.get("bounce_steps", 0) + steps
         out, rays = self.output(self.state)
         return out.clone(), rays.clone()   # the next chunk reuses the buffers
-
-    def close(self):
-        """Release the graph and its memory pool (with the static buffers)."""
-        if self.graph is not None:
-            self.graph.close()
-        self.graph, self.state, self._warm = None, None, False
 
 
 def trace_streamed(

@@ -67,7 +67,7 @@ class _Kernel(LaunchCounter):
     """The built CUDA library (loaded at first use) and its launch counts."""
 
     def __init__(self):
-        super().__init__()
+        super().__init__("traverse_kernel")
         self.lib = None
         self.build_log = ""
 

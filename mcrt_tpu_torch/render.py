@@ -10,7 +10,9 @@ the whole render: on the card its bounce step is captured once as a CUDA graph
 and replayed every bounce of every chunk), and under the box filter at radius
 0.5 the per-pixel sums go straight into the film rows.
 `integrator="photon_mapper"` first builds the photon maps (or loads them from
-the checkpoint directory), then runs the photon eye pass over the same chunks.
+the checkpoint directory; on the card the emission replays a captured step),
+then runs the photon eye pass over the same chunks (streamed, through one
+`photon_mapper.StreamedEyePass` per chunk size, replayed as the path tracer's).
 """
 from __future__ import annotations
 
@@ -108,11 +110,15 @@ def _chunk_plain(tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, start, n
     return film_acc + film_mod.splat(film_cfg, rays.px, radiance)
 
 
-def _chunk_pm_streamed(tables, meta, pmcfg, maps, cam, film_cfg, intersect_fn, spp, lanes,
-                       start, n, film_acc, stats):
-    """Paths [start, start+n) through the photon mapper's trace_streamed."""
-    radiance = pm.trace_streamed(tables, meta, pmcfg, maps, cam, spp, start, n, min(lanes, n),
-                                 intersect_fn=intersect_fn, stats=stats)
+def _chunk_pm_streamed(traces, tables, meta, pmcfg, maps, cam, film_cfg, intersect_fn, spp,
+                       lanes, start, n, film_acc, stats):
+    """Paths [start, start+n) through the photon mapper's StreamedEyePass of
+    n-path chunks, made at the first chunk of that size and kept in `traces`,
+    accumulated into film_acc."""
+    if n not in traces:
+        traces[n] = pm.StreamedEyePass(tables, meta, pmcfg, maps, cam, spp, n, min(lanes, n),
+                                       intersect_fn=intersect_fn)
+    radiance = traces[n](start, stats)
     if film_cfg.is_pixel_box and n % spp == 0:
         return _add_pixel_sums(film_acc, radiance.view(n // spp, spp, 3).sum(dim=1), spp, start)
     rays = _camera_rays(cam, spp, start, n, pmcfg.global_seed, film_acc.dtype, film_acc.device)
@@ -208,7 +214,7 @@ def render(
     if cfg.integrator not in ("path_tracer", "photon_mapper"):
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
     device = resolve_device(device)
-    traces = {}   # the streamed path tracer's StreamedTrace per chunk size
+    traces = {}   # the streamed trace (StreamedTrace or StreamedEyePass) per chunk size
     dtype = torch_dtype(cfg.dtype)
     stats = {} if stats is None else stats
     cam = scene.cameras[camera_idx]
@@ -230,7 +236,7 @@ def render(
         stats["photons_global"] = maps.global_.n_photons
         if cfg.streamed:
             run_chunk = lambda start, n, acc: _chunk_pm_streamed(
-                tables, meta, pmcfg, maps, cam, film_cfg, intersect_fn, spp, cfg.lanes,
+                traces, tables, meta, pmcfg, maps, cam, film_cfg, intersect_fn, spp, cfg.lanes,
                 start, n, acc, stats)
         else:
             run_chunk = lambda start, n, acc: _chunk_pm_plain(

@@ -5,6 +5,10 @@ The JAX package compiles a chunk's bounce loop into one device program
 of the loop as a CUDA graph (`torch.cuda.CUDAGraph`) and replays it: one launch
 of the whole step in place of one launch per op.
 
+`GraphedLoop` runs such a loop over static buffers: the first step eagerly,
+the second captured, every later one replayed, across every start loaded
+into the same buffers.
+
 A kernel wrapper counts its launches with a `LaunchCounter`. While the current
 stream is being captured, a launch only records the kernel into the graph and
 runs nothing: it goes to `captured`, not to `launches`. Each
@@ -29,7 +33,8 @@ class LaunchCounter:
     """A kernel's launches that ran (`launches`) and that were recorded into a
     graph under capture (`captured`)."""
 
-    def __init__(self):
+    def __init__(self, name: str = ""):
+        self.name = name
         self.launches = 0
         self.captured = 0
         _COUNTERS.append(self)
@@ -84,6 +89,64 @@ class CapturedStep:
 
     def close(self):
         self.graph.reset()
+
+
+class GraphedLoop:
+    """A loop of `step(state) -> state` run one step at a time over static
+    buffers: the shared core of the streamed loops (path_tracer.StreamedTrace,
+    the photon mapper's eye pass and emission). `state` is a NamedTuple of
+    tensors with an `alive` field.
+
+    load(init) puts a new start into `state`: on the card into the static
+    buffers, which the first load allocates (a clone of each field, so fields
+    that share a tensor get buffers of their own). advance() runs one step. On
+    the card the first advance after construction calls the step eagerly (it
+    builds the kernels, runs their first-use queries and settles the
+    allocator, none of which may first happen under capture) and leaves its
+    result in the buffers; the second captures the step over them
+    (CapturedStep); every later advance, of this load and of later ones, is
+    one replay. A capture that fails raises. On the CPU every advance calls
+    the step. close() releases the graph and its pool with the buffers."""
+
+    def __init__(self, step):
+        self.step = step
+        self.state = None
+        self.graph = None          # the CapturedStep, once captured
+        self._warm = False         # the first step ran eagerly
+
+    def load(self, init):
+        if init[0].device.type != "cuda":
+            self.state = init
+        elif self.state is None:
+            self.state = type(init)(*(x.clone() for x in init))
+        else:
+            copy_into(self.state, init)
+
+    def advance(self):
+        if self.state[0].device.type != "cuda":
+            self.state = self.step(self.state)
+        elif self.graph is not None:
+            self.graph.replay()
+        elif not self._warm:
+            copy_into(self.state, self.step(self.state))
+            self._warm = True
+        else:
+            self.graph = CapturedStep(self.step, self.state)
+            self.graph.replay()
+
+    def drain(self) -> int:
+        """advance() until no lane is alive, one host sync a step; returns
+        the steps run."""
+        steps = 0
+        while bool(self.state.alive.any()):
+            self.advance()
+            steps += 1
+        return steps
+
+    def close(self):
+        if self.graph is not None:
+            self.graph.close()
+        self.graph, self.state, self._warm = None, None, False
 
 
 def _distinct_tensors(tree):
