@@ -77,7 +77,9 @@ Phases (each prints its own lines; any failed check exits non-zero):
               (and the parent's kernel with the brute fallback on its flagged
               rows, in turns) timed at the eye pass's launch shape (16384
               queries, k = 50), with the bound counted from the rings that
-              certify each query
+              certify each query, and the library route to the same k-NN
+              (torch.cdist without the matrix product, then torch.topk: two
+              calls), its k-th d2 within rtol 1e-6 of the kernels'
   8. golden   tests/scenes/caustic_sphere.json photon-rendered at 48x48, 64 spp,
               2e5 emissions, against the C++ reference's
               tests/goldens/caustic_sphere_48_s8.tga with tests/test_e2e_golden.py's bars
@@ -132,8 +134,11 @@ Phases (each prints its own lines; any failed check exits non-zero):
                  (train, sharded, sharded, train); sharded_render_step and
                  render_distributed, held to render(sqrtspp=1) with
                  tests/test_distributed.py's bars (rtol 2e-4, atol 2e-5); walls,
-                 launches and peak memory; two launches of render_distributed's first
-                 chunk (131,072 rays, 512 blocks) held to the plain version
+                 launches, peak memory and each batch run's graph pool (their bounce
+                 loops replay a captured step, path_tracer.BatchTrace); two launches of
+                 render_distributed's first chunk (131,072 rays, 512 blocks) held to
+                 the plain version: bounce 0's (eager) and bounce 8's, read from the
+                 graph's static tensors after replay 8
               b. two gloo ranks sharing the card, one process each (this script with
                  the arguments `rank R W PORT DIR`), each building the scene anew:
                  render_distributed and the sharded train step, held to 10a's with the
@@ -165,9 +170,28 @@ Phases (each prints its own lines; any failed check exits non-zero):
                  rays, 16384, after the first replay): the lane-order one held to
                  the plain version bit for bit, and its rounds per block printed
                  beside the sorted one's
-              c. trace() of the 64x64 camera's rays at 1 spp with return_stats: its
-                 traversal_steps equal the sum of the primary launches' stats,
-                 [candidates summed over blocks, most rounds of a block]
+              c. trace() of the 64x64 camera's rays at 1 spp with return_stats, its
+                 step called eagerly (eager_loops): its traversal_steps equal the sum
+                 of the primary launches' stats, [candidates summed over blocks, most
+                 rounds of a block]; then graphed: the same traversal_steps and bounce
+                 steps
+              (11a also runs the bench's diagnostic trace eagerly in this process:
+              its bounce steps and counters must be the bench's graphed ones, and
+              the bench's diagnostic launches 2 a bounce step)
+  12. batch    the batch chunks, render(streamed=False) at 512x512, 1 spp, max_bounces
+              64 (two chunks of 2^17 paths, each one batch through its
+              integrator's batch run: path_tracer.BatchTrace,
+              photon_mapper.BatchEyePass), graphed, eagerly (eager_loops) and
+              graphed again in turns, for the path tracer and for the photon mapper
+              on phase 6's maps (loaded from its checkpoint, not rebuilt): images
+              within rtol 2e-4, atol 2e-5, bounce steps, rays, k-NN counts and
+              launches (2 traversal launches a step, 2 of each k-NN kernel)
+              identical; walls, peak memory and the graphs' pools; the path
+              tracer's bounce-0 launch and its captured launch after replay 8
+              (131,072 rays) held to the plain version bit for bit and timed with
+              their bounds; the eye pass's captured caustic and global k-NN calls
+              after replay 1 held to knn_plain bit for bit and timed; a profiled
+              graphed render of each, for the device-busy share
 
 The line before the last names the card and its power limit; the line before
 that is the JSON kernel table; the last line is the JSON result. Imports no JAX
@@ -180,6 +204,7 @@ import ctypes
 import dataclasses
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -396,7 +421,8 @@ def traversal_bound(tk, cbvh, o, d, stats):
 class CaptureLog:
     """Records each step captured as a CUDA graph (utils/cuda_graph.CapturedStep)
     while its patch is on: the function that built the step, the pool its
-    graph reserved, and the launches a replay runs by kernel."""
+    graph reserved, the launches a replay runs by kernel, and the capture's
+    host wall in seconds (its synchronise and empty_cache included)."""
 
     def __init__(self):
         self.made = []
@@ -408,9 +434,10 @@ class CaptureLog:
 
         class Logged(cuda_graph.CapturedStep):
             def __init__(self, fn, state):
+                t0 = time.perf_counter()
                 super().__init__(fn, state)
                 made.append((fn.__qualname__.split(".")[0], self.pool_bytes,
-                             {c.name: n for c, n in self.per_replay}))
+                             {c.name: n for c, n in self.per_replay}, time.perf_counter() - t0))
 
         return mock.patch.object(cuda_graph, "CapturedStep", Logged)
 
@@ -529,10 +556,10 @@ def photon_phase(scene, card, pm_dir):
     first = runs[0]
     log("photon", f"image mean {first['hdr'].mean():.6f} min {first['hdr'].min():.6f} max "
         f"{first['hdr'].max():.4f}")
-    for (name, pool, per) in captures.made:
+    for (name, pool, per, wall) in captures.made:
         log("photon", f"captured {name}: pool {pool / 2**20:.1f} MiB reserved, launches a replay "
-            f"{per} | {card}")
-    check(sorted({name for name, _, _ in captures.made}) == ["_make_emission_step",
+            f"{per}, capture {wall:.3f} s | {card}")
+    check(sorted({m[0] for m in captures.made}) == ["_make_emission_step",
                                                               "_make_eye_step"],
           "photon", f"the graphed runs captured {[m[0] for m in captures.made]}")
     for other, how in ((runs[1], "eager"), (runs[2], "graphed again")):
@@ -983,6 +1010,29 @@ def parent_knn(lib, kk, pg, g, pts, mask, k, fallback=True):
     return idx, d2, cnt, stats, rows
 
 
+def library_knn(g, pts, mask, k, got):
+    """The library route to the same exact k-NN, for the kernel table's
+    yardstick (nothing in the port uses it): torch.cdist over every (query,
+    photon) pair without the matrix-product form, then torch.topk of the k
+    smallest, two calls over a (Q, N) float32 matrix. Returns (ms of the two,
+    largest relative gap of its k-th d2 to the kernels' over the unmasked
+    queries)."""
+    import torch
+
+    pos = g.arrays.pos.to(torch.float32)
+
+    def run():
+        dist = torch.cdist(pts, pos, compute_mode="donot_use_mm_for_euclid_dist")
+        return torch.topk(dist, k, dim=1, largest=False).values
+
+    ms = cuda_time_ms(run, reps=3, warmup=1)
+    kth = run()[:, -1].double() ** 2
+    want = torch.where(got.valid, got.d2, torch.zeros_like(got.d2)).amax(dim=1).double()
+    rel = ((kth - want).abs() / want.clamp(min=1e-30))[mask]
+    torch.cuda.empty_cache()
+    return ms, float(rel.max())
+
+
 def knn_phase(scene, cam, card, rng, pm_dir, parent):
     """Phase 7: the k-NN kernels against their plain version on the photon
     render's maps, then timed. Returns the kernels' rows of the JSON table
@@ -1119,6 +1169,11 @@ def knn_phase(scene, cam, card, rng, pm_dir, parent):
         ops, bytes_ = w["total"]
         bound_ms, by = bound_of(ops, bytes_)
         r = kk.knn(g, g.arrays, pts, k, mask=mask)
+        lib_ms, lib_gap = library_knn(g, pts, mask, k, r)
+        log("knn", f"library route {mname:7s}: torch.cdist (no matrix product) + torch.topk, two "
+            f"calls over a {n} x {g.n_photons} float32 matrix, {lib_ms:.3f} ms; its k-th d2 within "
+            f"{lib_gap:.3g} (relative) of the kernels' on the valid queries | {card}")
+        check(lib_gap <= 1e-6, "knn", f"{mname}: the library route's k-th d2 is {lib_gap:.3g} off")
         log("knn", f"time {mname:7s} {n} queries ({int(mask.sum())} valid), k={k}: per call "
             f"{ms:.4f} ms with the wrapper, device ms per kernel {dev_ms}; plain {plain_ms:.3f} ms; "
             f"bound {bound_ms:.5f} ms ({by}; {ops:.4g} operations, {bytes_:.4g} bytes), "
@@ -1127,14 +1182,15 @@ def knn_phase(scene, cam, card, rng, pm_dir, parent):
             b_ms, b_by = bound_of(*w[stage_name])
             k_ms = dev_ms[kern.name]
             rows[kern.name].append(dict(ms=k_ms if k_ms is not None else ms, plain_ms=plain_ms,
-                                        bound_ms=b_ms, bound_by=b_by))
+                                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
     out = {}
     for name, rs in rows.items():
         mean = lambda key: sum(x[key] for x in rs) / len(rs)
         out[name] = {"max_abs_err": max_err, "ms": mean("ms"), "plain_ms": mean("plain_ms"),
                      "bound_ms": mean("bound_ms"),
                      "bound_by": max(rs, key=lambda x: x["bound_ms"])["bound_by"],
-                     "library_ms": None}
+                     "library_ms": mean("library_ms"),
+                     "library": "torch.cdist + torch.topk, two calls, for the whole k-NN call"}
     return out
 
 
@@ -1265,6 +1321,55 @@ class ReplaySnapshots:
         stack.enter_context(mock.patch.object(self.cls, "replay_f", self._wrap(0)))
         stack.enter_context(mock.patch.object(self.cls, "replay_b", self._wrap(1)))
         return stack
+
+
+class LoopSnapshots:
+    """Wraps utils/cuda_graph.CapturedStep.replay (a GraphedLoop's captured
+    step): after the replays named in `plan`, keeps `keep(entry)` of the entry
+    a recorder (LaunchRecorder, KnnRecorder) holds of a call the graph
+    captured. A captured call's tensors are the graph's static inputs and
+    outputs, which hold the last replay's values, so the kept copies are the
+    named replay's call. plan: {name: (replay number from 1, counted over
+    every captured step replayed while the patch is on, recorder call)}.
+    `seen` and `at` are what held_to_plain and knn_held_to_plain read. Keeps
+    device copies: nothing syncs."""
+
+    def __init__(self, rec, plan, keep):
+        from mcrt_tpu_torch.utils import cuda_graph
+
+        self.rec, self.plan, self.keep = rec, plan, keep
+        self.at, self.seen, self.count = set(plan), {}, 0
+        self.cls = cuda_graph.CapturedStep
+        self.real = self.cls.replay
+
+    def patch(self):
+        def replay(step):
+            self.real(step)
+            self.count += 1
+            for name, (n, call) in self.plan.items():
+                if n == self.count:
+                    self.seen[name] = self.keep(self.rec.seen[call])
+        return mock.patch.object(self.cls, "replay", replay)
+
+
+def keep_launch(entry):
+    """A LaunchRecorder entry with its rays and outputs copied (the BVH is not)."""
+    cbvh, o, d, out = entry
+    return cbvh, o.clone(), d.clone(), tuple(x.clone() for x in out)
+
+
+def keep_knn(entry):
+    """A KnnRecorder entry with its queries, mask and result copied."""
+    grid, arrays, points, k, mask, out = entry
+    return (grid, arrays, points.clone(), k, None if mask is None else mask.clone(),
+            type(out)(*(x.clone() for x in out)))
+
+
+class Held:
+    """What held_to_plain and knn_held_to_plain read, from named entries."""
+
+    def __init__(self, seen):
+        self.seen, self.at = dict(seen), set(seen)
 
 
 def held_to_plain(tk, recorder, what, card, phase="grad"):
@@ -1806,7 +1911,7 @@ def rank_main(rank: int, world: int, port: int, work: pathlib.Path) -> int:
         cam = scene.cameras[0]
         lin = torch.arange(cam.width * cam.height, device=dev)
         px, py, si = lin % cam.width, lin // cam.width, torch.zeros_like(lin)
-        img, wall_r, launches_r, _ = run_counted(tk, lambda: distributed.render_distributed(
+        img, wall_r, launches_r, peak_r = run_counted(tk, lambda: distributed.render_distributed(
             scene, 0, mt.RenderConfig(max_bounces=bounces, sqrtspp=1)))
         step = sharding.sharded_train_step(
             scene.meta(), pt.PTConfig(max_bounces=bounces), cam,
@@ -1819,7 +1924,7 @@ def rank_main(rank: int, world: int, port: int, work: pathlib.Path) -> int:
                  **{k: g.cpu().numpy() for k, g in grads.items()})
         log("multi", f"10b rank {rank} of {world} ({dist.get_backend()}, {dev}): scene and BVH "
             f"{t_scene:.2f} s; render_distributed {wall_r:.3f} s, traversal launches "
-            f"{launches_r}; sharded train step {wall_t:.3f} s, loss {float(loss):.9g}, "
+            f"{launches_r}, peak memory {peak_r:.3f} GiB; sharded train step {wall_t:.3f} s, loss {float(loss):.9g}, "
             f"traversal launches {launches_t}, peak memory {peak:.3f} GiB")
     finally:
         dist.destroy_process_group()
@@ -1919,13 +2024,24 @@ def multi_phase(scene, cbvh, card, step0):
         zero = torch.zeros((cam.height, cam.width, 4), device=dev)
         film, wall_s, launches_s, peak_s = run_counted(tk, lambda: rstep(tables, cbvh, *rays, zero))
         img_s = film_mod.scan(film).cpu().numpy()
-        # Two launches of the first chunk (131,072 rays, 512 blocks: a size no
-        # other phase checks) are held to the plain version afterwards: bounce
-        # 0's camera rays and bounce 8's rays, dead lanes parked among them.
-        dist_rec = LaunchRecorder(tk, at=(0, 16))
-        with mock.patch.object(tk, "traverse", dist_rec):
+        check(len(rstep.graphs) == 1, "multi", f"10a: the render step kept {len(rstep.graphs)} runs")
+        (run_s,) = rstep.graphs.values()   # one batch size, one run
+        check(run_s.graph is not None, "multi", "10a: the render step's bounce step was not captured")
+        pools = {"sharded_render_step": run_s.graph.pool_bytes / 2**20}
+        run_s.close()
+        # Two launches of render_distributed's first chunk (131,072 rays, 512
+        # blocks) are held to the plain version afterwards: bounce 0's camera
+        # rays (an eager launch) and bounce 8's rays, dead lanes parked among
+        # them: the captured launch (recorder call 2), copied after replay 8.
+        dist_rec = LaunchRecorder(tk, at=(0, 2))
+        dist_snaps = LoopSnapshots(dist_rec, {"bounce 8, replay 8": (8, 2)}, keep_launch)
+        dist_caps = CaptureLog()
+        with mock.patch.object(tk, "traverse", dist_rec), dist_snaps.patch(), dist_caps.patch():
             img_d, wall_d, launches_d, peak_d = run_counted(
                 tk, lambda: distributed.render_distributed(scene, 0, cfg1))
+        pools["render_distributed"] = sum(m[1] for m in dist_caps.made) / 2**20
+        check(len(dist_caps.made) == 1, "multi",
+              f"10a: render_distributed captured {len(dist_caps.made)} steps, not one")
         img_r, wall_r, launches_r, _ = run_counted(tk, lambda: mt.render(scene, 0, cfg1))
         for name, img, w, n_l, pk in (("sharded_render_step", img_s, wall_s, launches_s, peak_s),
                                       ("render_distributed", img_d, wall_d, launches_d, peak_d)):
@@ -1933,11 +2049,13 @@ def multi_phase(scene, cbvh, card, step0):
             log("multi", f"10a {name}, {cam.width}x{cam.height} 1 spp: {w:.3f} s, traversal "
                 f"launches {n_l}, peak memory {pk:.3f} GiB; against render() ({wall_r:.3f} s, "
                 f"{launches_r} launches): {bad} elements outside rtol {IMG_RTOL} atol {IMG_ATOL}, "
-                f"largest |d| {worst:.3g} | {card}")
+                f"largest |d| {worst:.3g}; its batch run's graph pool {pools[name]:.1f} MiB | {card}")
             check(n_l > 0, "multi", f"{name} launched no traversal")
             check(bool(np.isfinite(img).all()) and bad == 0, "multi", f"{name} is not render()'s image")
-        held_to_plain(tk, dist_rec, "10a render_distributed chunk 0", card, phase="multi")
-        del dist_rec
+        held = Held({"bounce 0": dist_rec.seen[0], **dist_snaps.seen})
+        del dist_rec, dist_snaps
+        held_to_plain(tk, held, "10a render_distributed chunk 0", card, phase="multi")
+        del held
         loss_a, grads_a = float(loss), {k: g.cpu().numpy() for k, g in grads.items()}
         del step, rstep, film, grads
     finally:
@@ -2067,6 +2185,9 @@ def bench_phase(scene, cbvh, card, render_rays_per_path):
     check(fwd["launches"] == 2 * fwd["bounce_steps"] and fwd["graph_pool_bytes"], "bench",
           f"the forward point's {fwd['launches']} launches for {fwd['bounce_steps']} graphed bounce "
           f"steps, graph pool {fwd['graph_pool_bytes']}")
+    check(fwd["diag_launches"] == 2 * fwd["diag_bounce_steps"] and fwd["diag_graph_pool_bytes"],
+          "bench", f"the diagnostic trace's {fwd['diag_launches']} launches for "
+          f"{fwd['diag_bounce_steps']} graphed bounce steps, graph pool {fwd['diag_graph_pool_bytes']}")
     check(bwd["launches"] == 4 * bwd["reps"] * bwd["trips"] and bwd["graph_pool_bytes"]
           and bwd["trip_step_calls"] == 3, "bench",
           f"the forward+backward point's {bwd['launches']} launches for {bwd['reps']} chunks of "
@@ -2077,7 +2198,7 @@ def bench_phase(scene, cbvh, card, render_rays_per_path):
         f"({per_path:.4f} a path, phase 4 {render_rays_per_path:.4f}), {fwd['bounce_steps']} bounce steps, "
         f"{fwd['launches']} traversal launches, graph pool {fwd['graph_pool_bytes'] / 2**20:.1f} MiB; diagnostic {fwd['diag_paths']} paths from path "
         f"{fwd['diag_first_path']}, {fwd['diag_bounce_steps']} bounce steps, {fwd['diag_launches']} "
-        f"launches; forward+backward {bwd['reps']} chunks of {bwd['chunk']} paths through "
+        f"launches, graph pool {fwd['diag_graph_pool_bytes'] / 2**20:.1f} MiB; forward+backward {bwd['reps']} chunks of {bwd['chunk']} paths through "
         f"{bwd['lanes']} lanes, {bwd['trips']} trips, {bwd['time_s']:.3f} s, {bwd['rays']} rays, "
         f"{bwd['launches']} launches, trip graph pool {bwd['graph_pool_bytes'] / 2**30:.3f} GiB; "
         f"{launches} launches in all, warm-ups included; kernel library "
@@ -2097,6 +2218,26 @@ def bench_phase(scene, cbvh, card, render_rays_per_path):
         f"bounce steps | {card}")
     check(rays_e == fwd["rays"] and stats_e["bounce_steps"] == fwd["bounce_steps"], "bench",
           "the eager forward point's rays or bounce steps are not the bench's")
+    # The bench's diagnostic trace in this process with the step called
+    # eagerly: the bounce steps and both counters of the bench's graphed one.
+    from mcrt_tpu_torch import bench
+
+    cam0 = scene.cameras[0]
+    rays = bench._camera_rays(cam0, cam0.sqrtspp ** 2, fwd["diag_first_path"], fwd["diag_paths"], 0,
+                              torch.float32, cbvh.rec.device)
+    tables0 = scene.tables(np.float32, cbvh.rec.device)
+    ifn0 = cluster_bvh.make_intersect_fn(tables0, scene.meta(), cbvh)
+    with eager_loops():
+        _, st_d = pt.trace(tables0, scene.meta(), pt.PTConfig(), rays.origin, rays.direction,
+                           rays.pixel_index, rays.sample_index, intersect_fn=ifn0, return_stats=True)
+    eager_diag = [int(x) for x in st_d["traversal_steps"]]
+    log("bench", f"the diagnostic trace eagerly: {st_d['bounce_steps']} bounce steps, counters "
+        f"{eager_diag}; the bench's (graphed) {fwd['diag_bounce_steps']} and "
+        f"{[res['diag_walk_steps_32k'], res['diag_leaf_rounds_32k']]} | {card}")
+    check(st_d["bounce_steps"] == fwd["diag_bounce_steps"]
+          and eager_diag == [res["diag_walk_steps_32k"], res["diag_leaf_rounds_32k"]], "bench",
+          "the graphed diagnostic trace's bounce steps or counters are not the eager loop's")
+    del rays, tables0, ifn0
     # The bench's forward+backward point graphed and eagerly, in one child
     # process of its own (the bench's chunk, BWD_TURN_REPS chunks each way).
     cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "bwd", str(bwd["chunk"].bit_length() - 1)]
@@ -2167,21 +2308,200 @@ def bench_phase(scene, cbvh, card, render_rays_per_path):
     lin = torch.arange(cam_c.width * cam_c.height, device=dev)
     rays = cam_mod.generate_rays(cam_c, lin % cam_c.width, lin // cam_c.width, torch.zeros_like(lin),
                                  0, torch.float32)
+    # Eagerly (eager_loops), so that the recorder sees every launch, then
+    # graphed: the recorder sees only the eager first step and the capture.
     rec = LaunchRecorder(tk, at=range(1 << 16))
-    with mock.patch.object(tk, "traverse", rec):
-        _, st = pt.trace(tables, meta, pt.PTConfig(), rays.origin, rays.direction, rays.pixel_index,
-                         rays.sample_index, intersect_fn=ifn, return_stats=True)
+    trace = lambda: pt.trace(tables, meta, pt.PTConfig(), rays.origin, rays.direction,
+                             rays.pixel_index, rays.sample_index, intersect_fn=ifn, return_stats=True)
+    with mock.patch.object(tk, "traverse", rec), eager_loops():
+        _, st = trace()
     check(len(rec.seen) == 2 * st["bounce_steps"], "bench",
           f"{len(rec.seen)} launches for {st['bounce_steps']} bounce steps")
     want = sum(torch.stack([out[4][:, 0].sum(), out[4][:, 1].max()]).long()
                for i, (_, _, _, out) in rec.seen.items() if i % 2 == 0)
     got = st.get("traversal_steps")
-    log("bench", f"{cam_c.width}x{cam_c.height} 1 spp trace: traversal_steps "
+    _, st_g = trace()
+    got_g = st_g.get("traversal_steps")
+    log("bench", f"{cam_c.width}x{cam_c.height} 1 spp trace, eager: traversal_steps "
         f"{None if got is None else got.tolist()}, the launches' stats {want.tolist()} over "
-        f"{st['bounce_steps']} primary launches | {card}")
+        f"{st['bounce_steps']} primary launches; graphed: traversal_steps "
+        f"{None if got_g is None else got_g.tolist()} over {st_g['bounce_steps']} bounce steps | {card}")
     check(got is not None and torch.equal(got, want), "bench",
           "traversal_steps is not the sum of the primary launches' stats")
+    check(got_g is not None and torch.equal(got_g, got) and st_g["bounce_steps"] == st["bounce_steps"],
+          "bench", "the graphed trace's traversal_steps or bounce steps are not the eager loop's")
     return launches
+
+
+def batch_phase(scene, cbvh, card, pm_dir):
+    """Phase 12: the batch chunks of both integrators, render(streamed=False),
+    each chunk one batch of camera rays through its integrator's batch run
+    (path_tracer.BatchTrace, photon_mapper.BatchEyePass; one per chunk size),
+    graphed, eagerly (eager_loops) and graphed again in turns; a replayed
+    traversal launch and replayed k-NN calls held to their plain versions;
+    the traversal (and k-NN) timed at the batch size; a profiled graphed
+    render of each integrator."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import mcrt_tpu_torch as mt
+    from mcrt_tpu_torch.accel import knn_kernel as kk
+    from mcrt_tpu_torch.ops import traverse_kernel as tk
+    from mcrt_tpu_torch.utils import cuda_graph
+
+    cam = scene.cameras[0]
+    counters = (tk.kernel, *kk.KERNELS)
+    captures = CaptureLog()
+
+    real_drain = cuda_graph.GraphedLoop.drain
+
+    def timed_drain(loop, drains):
+        """GraphedLoop.drain between two synchronisations, its (steps, wall s)
+        appended to `drains`: a chunk's bounce loop apart from its set-up."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = real_drain(loop)
+        torch.cuda.synchronize()
+        drains.append((steps, time.perf_counter() - t0))
+        return steps
+
+    def turn(integrator, how, cfg, record=None, ckpt=None):
+        """One render: (image, stats, wall s, launches by counter, peak GiB)."""
+        stats, drains = {}, []
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(eager_loops() if how == "eager" else captures.patch())
+            stack.enter_context(mock.patch.object(cuda_graph.GraphedLoop, "drain",
+                                                  lambda loop: timed_drain(loop, drains)))
+            for patch in record or ():
+                stack.enter_context(patch)
+            for c in counters:
+                c.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            img = mt.render(scene, 0, cfg, stats=stats, checkpoint_dir=ckpt, checkpoint_every_s=1e9)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {c.name: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = stats["bounce_steps"]
+        log("batch", f"{integrator}, {how}: {cam.width}x{cam.height} 1 spp, max_bounces 64, "
+            f"{stats['chunks']} chunks of {cfg.rays_per_chunk} paths: wall {wall:.3f} s, {steps} "
+            f"bounce steps ({1e3 * wall / steps:.2f} ms a step), launches {launches}, peak memory "
+            f"{peak:.3f} GiB" + (f", rays {int(stats['rays'])}" if "rays" in stats else "")
+            + "; the chunks' bounce loops (steps, s) " + ", ".join(f"({n}, {t:.3f})" for n, t in drains)
+            + f", the rest {wall - sum(t for _, t in drains):.3f} s | {card}")
+        check(bool(np.isfinite(img).all()) and float(img.min()) >= 0.0 and float(img.mean()) > 0.0,
+              "batch", f"{integrator}, {how}: a non-finite, negative or black image")
+        check(launches[tk.kernel.name] == 2 * steps > 0, "batch",
+              f"{integrator}, {how}: {launches} launches for {steps} bounce steps")
+        if integrator == "photon_mapper":
+            check(stats.get("photon_maps_loaded") is True, "batch",
+                  f"{how}: the photon maps were not loaded from phase 6's checkpoint")
+            check(all(launches[k.name] == 2 * steps for k in kk.KERNELS), "batch",
+                  f"{how}: k-NN launches {launches} for {steps} bounce steps")
+        return img, stats, wall, launches, peak
+
+    def turns(integrator, cfg, record, ckpts):
+        runs = [turn(integrator, how, cfg, record if i == 0 else None, ckpt)
+                for i, (how, ckpt) in enumerate(zip(("graphed", "eager", "graphed again"), ckpts))]
+        img, stats, _, launches, _ = runs[0]
+        same_keys = [k for k in stats if k in ("rays", "bounce_steps") or k.startswith("knn_")]
+        for (img_o, stats_o, _, launches_o, _), how in zip(runs[1:], ("eager", "graphed again")):
+            bad, worst = images_apart(img, img_o)
+            same = all(int(stats[k]) == int(stats_o[k]) for k in same_keys) and launches == launches_o
+            log("batch", f"{integrator}, graphed against {how}: {bad} elements outside rtol "
+                f"{IMG_RTOL} atol {IMG_ATOL}, largest |d| {worst:.3g}; {', '.join(same_keys)} and "
+                f"launches identical {same} | {card}")
+            check(bad == 0 and same, "batch", f"{integrator}: the graphed and {how} renders disagree")
+        log("batch", f"{integrator}, walls in turns (graphed, eager, graphed): "
+            + ", ".join(f"{r[2]:.3f}" for r in runs) + " s; peak memory "
+            + ", ".join(f"{r[4]:.3f}" for r in runs) + f" GiB | {card}")
+        return runs
+
+    def profiled(integrator, cfg, unprofiled, ckpt=None):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mt.render(scene, 0, cfg, checkpoint_dir=ckpt, checkpoint_every_s=1e9)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name = device_ns_by_name(prof)
+        dev_s = sum(by_name.values()) / 1e9
+        if dev_s <= 0:
+            log("batch", f"{integrator}: device share not measured (the profiler recorded no "
+                "device time)")
+            return
+        part = lambda key: 100 * sum(ns for n, ns in by_name.items() if key in n) / 1e9 / dev_s
+        log("batch", f"{integrator}, profiled graphed render (2 chunks): wall {wall:.3f} s (profiler "
+            f"on), device busy {dev_s:.3f} s ({100 * dev_s / wall:.1f}% of the profiled wall, "
+            f"{100 * dev_s / max(unprofiled):.1f}-{100 * dev_s / min(unprofiled):.1f}% of the "
+            f"graphed turns' {min(unprofiled):.3f}-{max(unprofiled):.3f} s); traversal "
+            f"{part('traverse_kernel'):.1f}%, k-NN kernels {part('knn_'):.1f}% of device time | {card}")
+        for name, ns in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            log("batch", f"  {integrator}: device time {ns / 1e6:10.1f} ms  {name[:90]}")
+
+    # ---- the path tracer: 2 chunks of 2^17 paths ----
+    cfg = mt.RenderConfig(max_bounces=64, sqrtspp=1, streamed=False)
+    rec = LaunchRecorder(tk, at=(0, 2))
+    snaps = LoopSnapshots(rec, {"bounce 8": (8, 2)}, keep_launch)
+    runs = turns("path_tracer", cfg, [mock.patch.object(tk, "traverse", rec), snaps.patch()],
+                 (None, None, None))
+    for name, pool, per, wall in captures.made:
+        log("batch", f"captured {name}: pool {pool / 2**20:.1f} MiB reserved, launches a replay "
+            f"{per}, capture {wall:.3f} s | {card}")
+    check([m[0] for m in captures.made] == ["make_bounce_step"] * 2, "batch",
+          f"the graphed path-tracer renders captured {[m[0] for m in captures.made]} (want one "
+          "bounce step each)")
+    held = Held({"bounce 0": rec.seen[0], "bounce 8, replay 8": snaps.seen["bounce 8"]})
+    del rec, snaps
+    held_to_plain(tk, held, "12 batch chunk 0", card, phase="batch")
+    for name, (cb, o, d, out) in sorted(held.seen.items()):
+        ms = cuda_time_ms(lambda: tk.traverse(cb, o, d), reps=10, warmup=2)
+        bound_ms, by, _ = traversal_bound(tk, cb, o, d, out[4])
+        log("batch", f"traversal at the batch size, {name}: {o.shape[0]} rays, {out[4].shape[0]} "
+            f"blocks, {ms:.3f} ms a launch, bound {bound_ms:.4f} ms ({by}), {ms / bound_ms:.1f}x "
+            f"| {card}")
+    del held
+    profiled("path_tracer", cfg, [runs[0][2], runs[2][2]])
+    del runs
+
+    # ---- the photon mapper on phase 6's maps: 2 chunks of 2^17 paths ----
+    pm_cfg = dataclasses.replace(cfg, integrator="photon_mapper")
+    maps = sorted(pathlib.Path(pm_dir).glob("photons_*.npz"))
+    check(len(maps) == 2, "batch", f"phase 6's maps: {[m.name for m in maps]}")
+    k = PHOTON_MAP["k_nearest_photons"]
+    made = len(captures.made)
+    with contextlib.ExitStack() as stack:
+        ckpts = [stack.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_batch_"))
+                 for _ in range(4)]
+        for d in ckpts:          # each render loads the maps, none resumes another's film
+            for m in maps:
+                shutil.copy(m, d)
+        krec = KnnRecorder(kk, at=(2, 3))
+        ksnaps = LoopSnapshots(krec, {"caustic, replay 1": (1, 2), "global, replay 1": (1, 3)},
+                               keep_knn)
+        runs = turns("photon_mapper", pm_cfg, [mock.patch.object(kk, "knn", krec), ksnaps.patch()],
+                     ckpts[:3])
+        for name, pool, per, wall in captures.made[made:]:
+            log("batch", f"captured {name}: pool {pool / 2**20:.1f} MiB reserved, launches a "
+                f"replay {per}, capture {wall:.3f} s | {card}")
+        check([m[0] for m in captures.made[made:]] == ["_make_eye_step"] * 2, "batch",
+              f"the graphed photon renders captured {[m[0] for m in captures.made[made:]]}")
+        unmasked = {}
+        held = Held(ksnaps.seen)
+        del krec, ksnaps
+        knn_held_to_plain(kk, held, "12 batch eye pass chunk 0", card, unmasked)
+        check(min(unmasked.values()) > 0, "batch", f"a held k-NN call had no query unmasked: {unmasked}")
+        for name, (grid, arrays, points, kn, mask, _) in sorted(held.seen.items()):
+            ms = cuda_time_ms(lambda: kk.knn(grid, arrays, points, kn, mask=mask), reps=5, warmup=1)
+            log("batch", f"k-NN at the batch size, {name}: {points.shape[0]} queries "
+                f"({int(mask.sum())} unmasked), k = {k}, {grid.n_photons} photons: {ms:.3f} ms a "
+                f"call | {card}")
+        del held
+        profiled("photon_mapper", pm_cfg, [runs[0][2], runs[2][2]], ckpts[3])
+        del runs
 
 
 def kernel_phase(scene, j, cbvh, card, parent, rng):
@@ -2510,12 +2830,13 @@ def main() -> int:
           "kernel render and plain render disagree")
 
     # ---- 6-8. the photon mapper ----
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_photons_") as pm_dir:
-        pm_trav, pm_launches, pm_maps = photon_phase(scene, card, pm_dir)
-        photon_replay_phase(scene, pm_maps, card)
-        photon_wide_k_phase(scene, pm_maps, card)
-        del pm_maps
-        knn_rows = knn_phase(scene, cam, card, rng, pm_dir, parent_knn_lib)
+    pm_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_photons_")   # phases 6, 7 and 12
+    pm_dir = pm_tmp.name
+    pm_trav, pm_launches, pm_maps = photon_phase(scene, card, pm_dir)
+    photon_replay_phase(scene, pm_maps, card)
+    photon_wide_k_phase(scene, pm_maps, card)
+    del pm_maps
+    knn_rows = knn_phase(scene, cam, card, rng, pm_dir, parent_knn_lib)
     golden_phase(card)
 
     # ---- 9. the differentiable path ----
@@ -2534,6 +2855,13 @@ def main() -> int:
     t11 = time.perf_counter()
     bench_launches = bench_phase(scene, cbvh, card, rays_traced / cam_rays)
     log("done", f"phase 11 took {time.perf_counter() - t11:.1f} s, the whole run "
+        f"{time.perf_counter() - t_start:.1f} s | {card}")
+
+    # ---- 12. the batch chunks of both integrators ----
+    t12 = time.perf_counter()
+    batch_phase(scene, cbvh, card, pm_dir)
+    pm_tmp.cleanup()
+    log("done", f"phase 12 took {time.perf_counter() - t12:.1f} s, the whole run "
         f"{time.perf_counter() - t_start:.1f} s | {card}")
 
     mean = lambda key: sum(r[key] for r in timing.values()) / len(timing)

@@ -106,7 +106,9 @@ def bench_ours(scene: Scene, device=None, chunk_lg: int = CHUNK_LG, lanes: int =
     inside the timer. One StreamedTrace runs every chunk, as in render(): on
     the card the warm-up captures its bounce step and the timed chunks replay
     it. Then a 2^diag_lg-path trace from the middle row, whose stats give the
-    traversal counters."""
+    traversal counters: one batch through path_tracer.trace, whose BatchTrace
+    on the card captures its bounce step at the second bounce and replays it
+    after; the `bench:` line gives its bounce steps, launches and pool."""
     device = resolve_device(device)
     cam = scene.cameras[0]
     spp = cam.sqrtspp ** 2
@@ -157,13 +159,21 @@ def bench_ours(scene: Scene, device=None, chunk_lg: int = CHUNK_LG, lanes: int =
     first = _middle_row(cam, spp, n_diag)
     rays = _camera_rays(cam, spp, first, n_diag, seed, torch.float32, device)
     diag_launches = tk.kernel.launches
-    _, st = pt.trace(tables, meta, cfg, rays.origin, rays.direction, rays.pixel_index,
-                     rays.sample_index, intersect_fn=intersect_fn, return_stats=True)
-    candidates, rounds = (int(x) for x in st["traversal_steps"])
+    diag_runs = {}
+    try:
+        _, st = pt.trace(tables, meta, cfg, rays.origin, rays.direction, rays.pixel_index,
+                         rays.sample_index, intersect_fn=intersect_fn, return_stats=True,
+                         graphs=diag_runs)
+        candidates, rounds = (int(x) for x in st["traversal_steps"])
+        diag_pool = sum(r.graph.pool_bytes for r in diag_runs.values() if r.graph is not None)
+    finally:
+        for r in diag_runs.values():
+            r.close()
     _report("forward", device=str(device), chunks=len(ray_counts), chunk=chunk,
             lanes=min(lanes, chunk), time_s=dt, rays=total_rays, bounce_steps=stats["bounce_steps"],
             launches=launches, graph_pool_bytes=pool_bytes, image_mean=image_mean,
-            diag_paths=n_diag, diag_first_path=first, diag_bounce_steps=st["bounce_steps"], diag_launches=tk.kernel.launches - diag_launches)
+            diag_paths=n_diag, diag_first_path=first, diag_bounce_steps=st["bounce_steps"], diag_launches=tk.kernel.launches - diag_launches,
+            diag_graph_pool_bytes=diag_pool)
     return {
         "paths": done,
         "rays": total_rays,

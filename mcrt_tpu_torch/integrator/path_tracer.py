@@ -6,12 +6,13 @@ source/integrator/integrator.cpp:31-129): a batch of rays advances one bounce
 per loop iteration; every per-ray decision (event selection, NEE visibility,
 RR) is a masked lane; two scene intersections per bounce (primary + shadow).
 
-The forward bounce loop is a Python `while` whose condition reads one flag
+The forward bounce loops are Python `while`s whose condition reads one flag
 from the device once per bounce (the JAX package's `lax.while_loop`);
-`trace_streamed` counts those host synchronisations. Its forward run
-(`StreamedTrace`) captures the bounce step once as a CUDA graph on the card
-and replays it each bounce, as the JAX package runs its chunk as one
-compiled program (`jax.jit`); on the CPU it calls the step eagerly. The
+`trace` and `trace_streamed` count those host synchronisations. Their forward
+runs (`BatchTrace` for `trace`, `StreamedTrace` for `trace_streamed`)
+capture the bounce step once as a CUDA graph on the card and replay it each
+bounce, as the JAX package runs its chunk as one compiled program
+(`jax.jit`); on the CPU they call the step eagerly. The
 differentiable loops (`trace(differentiable=True)`,
 `trace_streamed(fixed_trips=N)`) run a fixed number of trips with no host
 sync (the JAX package's `lax.scan`), each trip rematerialised in the
@@ -454,7 +455,13 @@ def trace(
     intersect reported them: untouched zeros never pass for a count).
 
     The default loop stops when every lane died or the slowest reached
-    max_bounces, with one host sync per bounce. `differentiable=True` runs
+    max_bounces, with one host sync per bounce, through a BatchTrace: on the
+    card its first bounce runs eagerly, the second captures the step as a
+    CUDA graph and every later bounce is one replay. The run is found in
+    `graphs` by its key (BatchTrace.key: the batch size and what the step
+    depends on) or made and kept there, so later calls of the same shapes
+    only copy their tables in and replay; without `graphs` it serves this
+    call alone and is closed before the return. `differentiable=True` runs
     exactly cfg.max_bounces steps and never syncs, so autograd can reverse it
     (dead lanes are parked and carry their radiance unchanged); `remat` then
     checkpoints every step, so the backward pass stores one PathState per
@@ -475,20 +482,74 @@ def trace(
         torch.zeros((1, 3), dtype=origin.dtype, device=dev))
     if differentiable:
         st = _run_trips(step, st, cfg.max_bounces, remat, graphs)
-        steps = cfg.max_bounces
+        radiance, rays, trav_steps = st.radiance, st.ray_count, st.trav_steps
+        steps, counted = cfg.max_bounces, step.counted
     else:
-        steps = 0
-        # One host sync per bounce: the loop ends when every lane died or the
-        # slowest lane reached max_bounces.
-        while bool(st.alive.any() & (st.bounce.min() < cfg.max_bounces)):
-            st = step(st)
-            steps += 1
+        runs = {} if graphs is None else graphs
+        key = BatchTrace.key(step, st)
+        if key not in runs:
+            runs[key] = BatchTrace(step, cfg.max_bounces)
+        try:
+            radiance, rays, trav_steps, steps, counted = runs[key](step, st)
+        finally:
+            if graphs is None:
+                runs[key].close()
     if return_stats:
-        stats = {"rays": st.ray_count, "bounce_steps": steps}
-        if step.counted:
-            stats["traversal_steps"] = st.trav_steps
-        return st.radiance, stats
-    return st.radiance
+        stats = {"rays": rays, "bounce_steps": steps}
+        if counted:
+            stats["traversal_steps"] = trav_steps
+        return radiance, stats
+    return radiance
+
+
+class BatchTrace(cuda_graph.GraphedLoop):
+    """The batch loop of trace(differentiable=False) for batches of one size:
+    the counterpart of the JAX package's `lax.while_loop`, which its chunk
+    compiles whole (`jax.jit`).
+
+    The bounce step (make_bounce_step, no regeneration) is rebuilt over
+    static copies of its `leaves` (the tables, the packs, the intersect's
+    tables, BVH and geometry pack), since a caller builds a new step, and new
+    tensors, for every batch. Calling the run with a call's step (built like
+    the run's: the same key) and start state copies the step's leaves into
+    the static ones and the state into the static buffers, then advances one
+    bounce at a time (utils/cuda_graph.GraphedLoop): on the card the first
+    bounce runs eagerly, the second captures the step as a CUDA graph, and
+    every later bounce, of this batch and the later ones, is one replay; a
+    capture that fails raises. On the CPU every bounce calls the step, over
+    the same static leaves. The loop runs while any lane is alive and the
+    slowest lane is below max_bounces, the JAX package's condition, read once
+    a bounce. Returns (radiance, rays traced, the primary intersects'
+    Hit.steps summed, bounce steps, whether the intersect reported them),
+    the tensors copies: the next batch reuses the buffers."""
+
+    def __init__(self, step, max_bounces: int):
+        tensors, pattern, spec = cuda_graph._distinct_tensors(step.leaves)
+        self.leaves = [t.detach().clone() for t in tensors]
+        self.max_bounces = max_bounces
+        self.bounce_step = step.rebind(cuda_graph.rebuild_tree(pattern, spec, self.leaves))
+        super().__init__(self.bounce_step)
+
+    @staticmethod
+    def key(step, state):
+        """What a run depends on beyond the values of its inputs: the batch
+        size and dtypes, the step's shapes and configuration."""
+        return ("batch",) + cuda_graph.GraphedTrip.key(step, state)
+
+    def running(self, state):
+        return state.alive.any() & (state.bounce.min() < self.max_bounces)
+
+    def __call__(self, step, state: PathState):
+        with torch.no_grad():
+            for s, t in zip(self.leaves, cuda_graph._distinct_tensors(step.leaves)[0]):
+                s.copy_(t)
+        self.load(state)
+        steps = self.drain()
+        st = self.state
+        # `counted` is set by the step's Python, which on the card runs only
+        # in the eager first bounce and the capture.
+        return (st.radiance.clone(), st.ray_count.clone(), st.trav_steps.clone(), steps,
+                steps > 0 and self.bounce_step.counted)
 
 
 class StreamedTrace(cuda_graph.GraphedLoop):

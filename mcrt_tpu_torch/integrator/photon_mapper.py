@@ -21,10 +21,11 @@ source/integrator/photon-mapper/photon-mapper.cpp):
 
 The JAX package's `while_loop`s are Python loops that read one flag from the
 device per step; `stats` counts the steps. Its compiled chunks (`run_chunk`,
-the jitted streamed eye pass) are `_EmissionRun` and `StreamedEyePass`: one
-step built per shape, whose chunk-dependent inputs ride in the state, so on
-the card it is captured once as a CUDA graph and replayed for every later
-step of every chunk (utils/cuda_graph.GraphedLoop).
+the jitted streamed and batch eye passes) are `_EmissionRun`,
+`StreamedEyePass` and `BatchEyePass`: one step built per shape, whose
+chunk-dependent inputs ride in the state, so on the card it is captured once
+as a CUDA graph and replayed for every later step of every chunk
+(utils/cuda_graph.GraphedLoop).
 """
 from __future__ import annotations
 
@@ -680,26 +681,51 @@ def trace(
     stats: dict | None = None,
 ):
     """Photon-mapping eye pass for a batch of camera rays -> (R,3) radiance,
-    one host sync per bounce, every step called eagerly. With a `stats` dict,
-    "bounce_steps" (host syncs) and the k-NN counts of photon_grid.knn are
-    added to it."""
-    R = origin.shape[0]
-    dev = origin.device
-    if intersect_fn is None:
-        intersect_fn = lambda o, d: isect.intersect_brute(tables, meta, o, d)
-    step = _make_eye_step(tables, meta, cfg, maps, intersect_fn)
-    st = _init_eye(
-        tables, cfg, origin, direction, sobol.as_u32(pixel_index, dev),
-        sobol.as_u32(sample_index, dev), torch.ones((R,), dtype=torch.bool, device=dev),
-        torch.arange(R, dtype=torch.int32, device=dev),
-        torch.full((), R, dtype=torch.int64, device=dev),
-        torch.zeros((1, 3), dtype=origin.dtype, device=dev), 0)
-    steps = 0
-    while bool(st.alive.any()):   # one host sync per bounce
-        st = step(st)
-        steps += 1
-    _add_stats(stats, maps, steps, st.knn)
-    return st.radiance
+    through a one-shot BatchEyePass (on the card, a captured bounce step), one
+    host sync per bounce. With a `stats` dict, "bounce_steps" (host syncs)
+    and the k-NN counts of photon_grid.knn are added to it."""
+    run = BatchEyePass(tables, meta, cfg, maps, intersect_fn=intersect_fn)
+    try:
+        return run(origin, direction, pixel_index, sample_index, stats)
+    finally:
+        run.close()
+
+
+class BatchEyePass(cuda_graph.GraphedLoop):
+    """The eye pass's batch loop (trace) over one (tables, maps, intersect),
+    for batches of one size: the counterpart of the JAX package's
+    `lax.while_loop`, which its chunk compiles whole (`jax.jit`), and the
+    batch twin of StreamedEyePass. The step is built once; a batch's rays ride
+    in the state. Calling the run with a batch's camera rays loads them into
+    the state (on the card the static buffers, which the first batch
+    allocates) and advances one bounce at a time while any lane is alive, one
+    host sync a bounce: on the card the first bounce runs eagerly, the second
+    captures the step as a CUDA graph, and every later bounce, of this batch
+    and the later ones, is one replay (utils/cuda_graph.GraphedLoop); a
+    capture that fails raises. On the CPU every bounce calls the step. Returns
+    the (R, 3) radiance (a copy: the next batch reuses the buffers); with a
+    `stats` dict, adds what trace adds. `close()` releases the graph and its
+    pool."""
+
+    def __init__(self, tables: SceneTables, meta: SceneMeta, cfg: PMConfig, maps: PhotonMaps,
+                 intersect_fn: Callable | None = None):
+        if intersect_fn is None:
+            intersect_fn = lambda o, d: isect.intersect_brute(tables, meta, o, d)
+        self.tables, self.cfg, self.maps = tables, cfg, maps
+        super().__init__(_make_eye_step(tables, meta, cfg, maps, intersect_fn))
+
+    def __call__(self, origin, direction, pixel_index, sample_index, stats: dict | None = None):
+        R = origin.shape[0]
+        dev = origin.device
+        self.load(_init_eye(
+            self.tables, self.cfg, origin, direction, sobol.as_u32(pixel_index, dev),
+            sobol.as_u32(sample_index, dev), torch.ones((R,), dtype=torch.bool, device=dev),
+            torch.arange(R, dtype=torch.int32, device=dev),
+            torch.full((), R, dtype=torch.int64, device=dev),
+            torch.zeros((1, 3), dtype=origin.dtype, device=dev), 0))
+        steps = self.drain()
+        _add_stats(stats, self.maps, steps, self.state.knn)
+        return self.state.radiance.clone()
 
 
 class StreamedEyePass(cuda_graph.GraphedLoop):

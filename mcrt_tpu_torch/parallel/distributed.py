@@ -119,8 +119,10 @@ def render_distributed(scene, camera_idx: int = 0, cfg=None, verbose: bool = Fal
     Each chunk of min(rays_per_chunk, MAX_RAYS_PER_CHUNK) paths per rank goes
     through the batch path tracer (`pt.trace`) in `sharded_render_step`, with
     the scene's ClusterBVH routed when it has a "bvh" block; the tail is padded
-    to a multiple of the rank count with masked lanes. In a world of one this
-    is a one-device render by the batch tracer.
+    to a multiple of the rank count with masked lanes. The step's runs
+    (`graphs`, one per chunk size: on the card a captured bounce step) serve
+    every chunk and are closed when the loop ends. In a world of one this is
+    a one-device render by the batch tracer.
     device: None is the rank's CUDA device (raise without one); "cpu" on request."""
     from ..render import RenderConfig
 
@@ -146,12 +148,17 @@ def render_distributed(scene, camera_idx: int = 0, cfg=None, verbose: bool = Fal
     chunk = min(chunk, ((total // mesh.size) or 1) * mesh.size)
     film = torch.zeros((cam.height, cam.width, 4), dtype=dtype, device=device)
     done = 0
-    while done < total:
-        n = min(chunk, total - done)
-        film = step(*args, *chunk_pixels(cam, spp, total, done, n, mesh.size, device), film)
-        done += n
-        if verbose and mesh.rank == 0:
-            print(f"\r{done}/{total} rays", end="", flush=True)
+    try:
+        while done < total:
+            n = min(chunk, total - done)
+            film = step(*args, *chunk_pixels(cam, spp, total, done, n, mesh.size, device), film)
+            done += n
+            if verbose and mesh.rank == 0:
+                print(f"\r{done}/{total} rays", end="", flush=True)
+    finally:
+        for run in step.graphs.values():   # the graphs, their pools and static tables
+            run.close()
+        step.graphs.clear()
     if verbose and mesh.rank == 0:
         print()
     return film_mod.scan(film).cpu().numpy().astype(np.float64)

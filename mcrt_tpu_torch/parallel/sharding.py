@@ -103,9 +103,11 @@ def _local_film(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype, device
     """Returns fn(tables, cbvh, px, py, si) -> this rank's (H, W, 4) film of its
     slice of the global (R,) px, py, si. cbvh None intersects by brute force.
     The camera's constants are uploaded here, once: inside a step the upload
-    would synchronise the host with the card. On the card the differentiable
-    trace's trips are captured at the first call and replayed by the later
-    ones of the same shapes (`graphs`, path_tracer._run_trips)."""
+    would synchronise the host with the card. On the card the trace's loop is
+    captured at the first call and replayed by the later ones of the same
+    shapes, which copy their tables in (`graphs`: the forward trace's
+    path_tracer.BatchTrace, the differentiable trace's trips, see
+    path_tracer._run_trips)."""
     consts = cam_mod.camera_consts(cam, dtype, device)
     graphs = {}
 
@@ -133,7 +135,11 @@ def sharded_render_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype
     divide by the mesh's size. Each rank traces its contiguous slice through
     `pt.trace` (the ClusterBVH's intersect when cbvh is given, the same
     intersect path as one device), and every rank gets film + the sum of the
-    ranks' (H, W, 4) splats.
+    ranks' (H, W, 4) splats. The all-reduce runs after the trace, outside
+    its graph. The returned function's `graphs` holds the trace's runs
+    (path_tracer.BatchTrace, one per batch size): the first call of a size
+    captures its bounce step on the card, later calls copy their tables in
+    and replay it; close them (and clear the dict) when done.
     device: None is the CUDA device (raise without one); "cpu" on request."""
     device = resolve_device(device)
     dtype = torch_dtype(dtype)
@@ -142,9 +148,9 @@ def sharded_render_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype
     def step(tables, cbvh, px, py, si, film):
         return torch.as_tensor(film, device=device) + _all_reduce(mesh, local(tables, cbvh, px, py, si))
 
-    if with_bvh:
-        return step
-    return lambda tables, px, py, si, film: step(tables, None, px, py, si, film)
+    fn = step if with_bvh else lambda tables, px, py, si, film: step(tables, None, px, py, si, film)
+    fn.graphs = local.graphs
+    return fn
 
 
 def sharded_train_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype,

@@ -8,11 +8,15 @@ accumulates into a film carried across chunks on the device. With
 `lanes` persistent lanes (`path_tracer.StreamedTrace`, one per chunk size for
 the whole render: on the card its bounce step is captured once as a CUDA graph
 and replayed every bounce of every chunk), and under the box filter at radius
-0.5 the per-pixel sums go straight into the film rows.
+0.5 the per-pixel sums go straight into the film rows. With `streamed=False`
+a chunk is one batch of camera rays through `path_tracer.trace`, whose
+`BatchTrace` for that batch size is kept for the whole render and replayed
+the same way.
 `integrator="photon_mapper"` first builds the photon maps (or loads them from
 the checkpoint directory; on the card the emission replays a captured step),
-then runs the photon eye pass over the same chunks (streamed, through one
-`photon_mapper.StreamedEyePass` per chunk size, replayed as the path tracer's).
+then runs the photon eye pass over the same chunks (one
+`photon_mapper.StreamedEyePass`, or with `streamed=False` one
+`photon_mapper.BatchEyePass`, per chunk size, replayed as the path tracer's).
 """
 from __future__ import annotations
 
@@ -97,13 +101,15 @@ def _chunk_streamed(traces, tables, meta, ptcfg, cam, film_cfg, intersect_fn, sp
     return film_acc + film_mod.splat(film_cfg, rays_.px, radiance)
 
 
-def _chunk_plain(tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, start, n,
+def _chunk_plain(traces, tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, start, n,
                  film_acc, stats):
-    """Paths [start, start+n) as one batch of camera rays through trace."""
+    """Paths [start, start+n) as one batch of camera rays through trace,
+    whose BatchTrace for n-ray batches is made at the first chunk of that
+    size and kept in `traces`."""
     rays = _camera_rays(cam, spp, start, n, ptcfg.global_seed, film_acc.dtype, film_acc.device)
     radiance, st = pt.trace(
         tables, meta, ptcfg, rays.origin, rays.direction, rays.pixel_index, rays.sample_index,
-        intersect_fn=intersect_fn, return_stats=True,
+        intersect_fn=intersect_fn, return_stats=True, graphs=traces,
     )
     stats["rays"] = stats.get("rays", 0) + st["rays"]
     stats["bounce_steps"] = stats.get("bounce_steps", 0) + st["bounce_steps"]
@@ -125,14 +131,15 @@ def _chunk_pm_streamed(traces, tables, meta, pmcfg, maps, cam, film_cfg, interse
     return film_acc + film_mod.splat(film_cfg, rays.px, radiance)
 
 
-def _chunk_pm_plain(tables, meta, pmcfg, maps, cam, film_cfg, intersect_fn, spp, start, n,
-                    film_acc, stats):
+def _chunk_pm_plain(traces, tables, meta, pmcfg, maps, cam, film_cfg, intersect_fn, spp, start,
+                    n, film_acc, stats):
     """Paths [start, start+n) as one batch of camera rays through the photon
-    mapper's trace."""
+    mapper's BatchEyePass of n-ray batches, made at the first chunk of that
+    size and kept in `traces`."""
     rays = _camera_rays(cam, spp, start, n, pmcfg.global_seed, film_acc.dtype, film_acc.device)
-    radiance = pm.trace(tables, meta, pmcfg, maps, rays.origin, rays.direction,
-                        rays.pixel_index, rays.sample_index, intersect_fn=intersect_fn,
-                        stats=stats)
+    if n not in traces:
+        traces[n] = pm.BatchEyePass(tables, meta, pmcfg, maps, intersect_fn=intersect_fn)
+    radiance = traces[n](rays.origin, rays.direction, rays.pixel_index, rays.sample_index, stats)
     return film_acc + film_mod.splat(film_cfg, rays.px, radiance)
 
 
@@ -206,15 +213,18 @@ def render(
     (other resolution/spp/seed/scene) is ignored. Photon maps are saved there
     too, and reused by a render with the same photon settings.
     stats: if a dict, receives "chunks" and "bounce_steps" (host
-    synchronisations of the bounce loops); the path tracer adds "rays" (a
-    device count), the photon mapper "photons_caustic", "photons_global",
-    "photon_pass_s", "emission_steps" and the k-NN counts of photon_grid.knn.
+    synchronisations of the bounce loops: one a bounce step, which on the
+    card is one replay of a captured graph after each run's first two); the
+    path tracer adds "rays" (a device count), the photon mapper
+    "photons_caustic", "photons_global", "photon_pass_s", "emission_steps"
+    and the k-NN counts of photon_grid.knn.
     verbose: print the photon emission and a per-chunk progress line.
     """
     if cfg.integrator not in ("path_tracer", "photon_mapper"):
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
     device = resolve_device(device)
-    traces = {}   # the streamed trace (StreamedTrace or StreamedEyePass) per chunk size
+    traces = {}   # the chunk loop's run (StreamedTrace, StreamedEyePass, BatchTrace or
+                  # BatchEyePass) per chunk size
     dtype = torch_dtype(cfg.dtype)
     stats = {} if stats is None else stats
     cam = scene.cameras[camera_idx]
@@ -240,7 +250,8 @@ def render(
                 start, n, acc, stats)
         else:
             run_chunk = lambda start, n, acc: _chunk_pm_plain(
-                tables, meta, pmcfg, maps, cam, film_cfg, intersect_fn, spp, start, n, acc, stats)
+                traces, tables, meta, pmcfg, maps, cam, film_cfg, intersect_fn, spp, start, n, acc,
+                stats)
     else:
         ptcfg = pt.PTConfig(max_bounces=cfg.max_bounces, global_seed=cfg.global_seed)
         if cfg.streamed:
@@ -249,7 +260,7 @@ def render(
                 start, n, acc, stats)
         else:
             run_chunk = lambda start, n, acc: _chunk_plain(
-                tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, start, n, acc, stats)
+                traces, tables, meta, ptcfg, cam, film_cfg, intersect_fn, spp, start, n, acc, stats)
 
     n_pix = cam.width * cam.height
     total = n_pix * spp

@@ -7,7 +7,7 @@ of the whole step in place of one launch per op.
 
 `GraphedLoop` runs such a loop over static buffers: the first step eagerly,
 the second captured, every later one replayed, across every start loaded
-into the same buffers.
+into the same buffers, until the loop's stop rule (`running`) says so.
 
 A kernel wrapper counts its launches with a `LaunchCounter`. While the current
 stream is being captured, a launch only records the kernel into the graph and
@@ -93,9 +93,9 @@ class CapturedStep:
 
 class GraphedLoop:
     """A loop of `step(state) -> state` run one step at a time over static
-    buffers: the shared core of the streamed loops (path_tracer.StreamedTrace,
-    the photon mapper's eye pass and emission). `state` is a NamedTuple of
-    tensors with an `alive` field.
+    buffers: the shared core of the forward loops (path_tracer.StreamedTrace
+    and BatchTrace, the photon mapper's eye passes and emission). `state` is
+    a NamedTuple of tensors with an `alive` field.
 
     load(init) puts a new start into `state`: on the card into the static
     buffers, which the first load allocates (a clone of each field, so fields
@@ -106,7 +106,9 @@ class GraphedLoop:
     result in the buffers; the second captures the step over them
     (CapturedStep); every later advance, of this load and of later ones, is
     one replay. A capture that fails raises. On the CPU every advance calls
-    the step. close() releases the graph and its pool with the buffers."""
+    the step. drain() advances while `running(state)`, a device boolean read
+    once a step: any lane alive, unless a subclass gives its loop's own rule.
+    close() releases the graph and its pool with the buffers."""
 
     def __init__(self, step):
         self.step = step
@@ -134,11 +136,15 @@ class GraphedLoop:
             self.graph = CapturedStep(self.step, self.state)
             self.graph.replay()
 
+    def running(self, state):
+        """The loop's condition, a device boolean: any lane alive."""
+        return state.alive.any()
+
     def drain(self) -> int:
-        """advance() until no lane is alive, one host sync a step; returns
-        the steps run."""
+        """advance() while `running`, one host sync a step; returns the steps
+        run."""
         steps = 0
-        while bool(self.state.alive.any()):
+        while bool(self.running(self.state)):
             self.advance()
             steps += 1
         return steps
@@ -164,6 +170,12 @@ def _distinct_tensors(tree):
         else:
             pattern.append(("const", x))
     return tensors, tuple(pattern), spec
+
+
+def rebuild_tree(pattern, spec, tensors):
+    """The pytree that _distinct_tensors took apart, over `tensors` in place of
+    its distinct tensors."""
+    return tree_unflatten([tensors[p] if isinstance(p, int) else p[1] for p in pattern], spec)
 
 
 class GraphedTrip:
@@ -230,8 +242,7 @@ class GraphedTrip:
         return (step.key, spec, pattern, tuple(map(sig, tensors)), tuple(map(sig, state)))
 
     def _tree(self, tensors):
-        return tree_unflatten([tensors[p] if isinstance(p, int) else p[1] for p in self.pattern],
-                              self.spec)
+        return rebuild_tree(self.pattern, self.spec, tensors)
 
     def _call_step(self, state):
         self.step_calls += 1

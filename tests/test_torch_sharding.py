@@ -236,7 +236,8 @@ def test_process_shard_matches_jax(monkeypatch, total):
 
 def _record_chunks(module, monkeypatch):
     """Patch module.sharded_render_step with a step that records each chunk's
-    global (px, py, si) as int64 numpy and returns the film unchanged."""
+    global (px, py, si) as int64 numpy and returns the film unchanged (with
+    the port's `graphs`, which holds no run)."""
     seen = []
 
     def fake(*args, **kwargs):
@@ -244,6 +245,7 @@ def _record_chunks(module, monkeypatch):
             px, py, si, film = a[-4:]
             seen.append(tuple(np.asarray(x).astype(np.int64) for x in (px, py, si)))
             return film
+        step.graphs = {}
         return step
 
     monkeypatch.setattr(module, "sharded_render_step", fake)
