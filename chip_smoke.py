@@ -162,9 +162,10 @@ Phases (each prints its own lines; any failed check exits non-zero):
                  processes loaded the kernel library this run built from the
                  checkout's source, with nothing new in _build/; the line, the
                  walls and the traversal launches are printed
-              b. the 64x64 camera at 4 spp through make_intersect_fn with
-                 coherence_key patched to the lane index (the rays traversed in
-                 lane order) and through the default, held to each other with
+              b. the 64x64 camera at 4 spp through make_intersect_fn(sort_rays=False)
+                 (the rays traversed in lane order) and through the default,
+                 both through render()'s streamed chunks graphed
+                 (streamed_render), held to each other with
                  tests/test_distributed.py's bars (rtol 2e-4, atol 2e-5); in
                  each order, the graphed step's launch 2 (bounce 1's primary
                  rays, 16384, after the first replay): the lane-order one held to
@@ -192,6 +193,30 @@ Phases (each prints its own lines; any failed check exits non-zero):
               their bounds; the eye pass's captured caustic and global k-NN calls
               after replay 1 held to knn_plain bit for bit and timed; a profiled
               graphed render of each, for the device-busy share
+  13. methods  the JAX package's own traversal formulations, and float64 on the card:
+              a. cluster_bvh.traverse by "walk" and "bestfirst" (the float32 cluster
+                 tree, row gathers: 5536 clusters) against "kernel" on phase 3's
+                 camera, surface and shadow rays (16384 each, sorted) and its mixed
+                 set: ids identical to the kernel's on at least 99.9% of rays (its
+                 fmaf chains split shared edges differently), parked rays missing;
+                 each method's t, u, v against the float64 recompute of its
+                 winning triangles (refine_tri_hit), walk's and best-first's
+                 within 5e-6 of t + |o| and 5e-3 (the kernel's global-frame forms
+                 are reported: they lose more at grazing incidence); each
+                 method's ms a call, stats and peak memory. Then best-first on a
+                 displaced grid of under 2048 clusters, its one-hot gather (three
+                 bf16 products) against its row gather, bit for bit
+              b. float64 on the card, which traverses best-first with every loop
+                 step eager (stats["graphed"] False, no kernel launch): render() at
+                 512x512, 1 spp, 64 bounces, held to the float32 kernel render with
+                 phase 5's bars; a 16x16 camera at 1 spp, 8 bounces (cut from 64x64
+                 for time) on the card and on the CPU (the kernel route's plain
+                 version): images within rtol
+                 1e-9 (atol 1e-12), one train step's loss within rtol 1e-9 and its
+                 gradients within 1e-9 of each table's largest |g|; 4096 float64
+                 exact k-NN queries (k = 50) of phase 6's maps on the card (the
+                 capped search and the brute force, no kernel) and on the CPU: ids
+                 identical; walls and peak memory
 
 The line before the last names the card and its power limit; the line before
 that is the JSON kernel table; the last line is the JSON result. Imports no JAX
@@ -274,6 +299,16 @@ BWD_TURN_REPS = 1           # 11a's child: chunks of the bench's forward+backwar
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "fwd_bwd_rays_per_s_1024spp",
               "fwd_bwd_chunk", "diag_walk_steps_32k", "diag_leaf_rounds_32k", "card"}
 SWITCH_WIDTH = 64
+# Phase 13: the JAX package's own traversal formulations (walk, best-first)
+# against the kernel on phase 3's ray sets at the main path's launch size, the
+# one-hot gather on a displaced grid of 2 ONEHOT_GRID_N^2 triangles (under 2048
+# clusters), and float64 on the card: render() at 512x512, 1 spp, 64 bounces;
+# a F64_CHECK_WIDTH^2 camera at 1 spp, CHECK_GRAD_BOUNCES bounces, rendered and
+# trained on the card and on the CPU; KNN64_QUERIES float64 exact k-NN queries
+# of phase 6's maps on the card and on the CPU.
+ONEHOT_GRID_N = 200
+F64_CHECK_WIDTH = 16    # cut from 64: on the H100 host the CPU half took 106 s at 32
+KNN64_QUERIES = 1 << 12
 ROOT = pathlib.Path(__file__).resolve().parent
 # The parent commit's traverse.cu, when one is handed in beside the checkout (it
 # is not part of the repo): phase 3 then times it in turns with this tree's
@@ -1409,7 +1444,16 @@ def device_ns_by_name(prof):
 def eager_render(scene, idx, cfg, stats):
     """render()'s path-tracer main path (streamed chunks, per-pixel sums into a
     box-filtered film) with the bounce step called eagerly, one launch per op,
-    as before the step was graphed: each chunk's state from
+    as before the step was graphed (streamed_render). Adds "rays",
+    "bounce_steps" and "chunks" to `stats`; returns the image as render()."""
+    return streamed_render(scene, idx, cfg, stats, graphed=False)
+
+
+def streamed_render(scene, idx, cfg, stats, ifn=None, graphed=True):
+    """render()'s path-tracer main path (streamed chunks, per-pixel sums into a
+    box-filtered film) through the intersect `ifn` (None: render()'s own,
+    make_intersect_fn's defaults). graphed: each chunk runs through its
+    StreamedTrace's graphed loop, as in render(); else each chunk's state from
     StreamedTrace.initial, its make_bounce_step step driven in a Python loop
     (one host sync a bounce), StreamedTrace.output. Adds "rays",
     "bounce_steps" and "chunks" to `stats`; returns the image as render()."""
@@ -1428,7 +1472,8 @@ def eager_render(scene, idx, cfg, stats):
           "the eager loop sums per pixel: the camera's film must be a box")
     tables = scene.tables(np.float32, dev)
     meta = scene.meta()
-    ifn = cluster_bvh.make_intersect_fn(tables, meta, scene.build_cluster_bvh(np.float32, dev))
+    if ifn is None:
+        ifn = cluster_bvh.make_intersect_fn(tables, meta, scene.build_cluster_bvh(np.float32, dev))
     ptcfg = pt.PTConfig(max_bounces=cfg.max_bounces, global_seed=cfg.global_seed)
     total = cam.width * cam.height * spp
     chunk = min(cfg.rays_per_chunk, total)
@@ -1437,31 +1482,42 @@ def eager_render(scene, idx, cfg, stats):
     traces = {}
     for key in ("rays", "bounce_steps", "chunks"):
         stats[key] = 0
-    for start in range(0, total, chunk):
-        n = min(chunk, total - start)
-        if n not in traces:
-            traces[n] = pt.StreamedTrace(tables, meta, ptcfg, cam, spp, n, min(cfg.lanes, n),
-                                         intersect_fn=ifn, pixel_sums=True)
-        tr = traces[n]
-        st = tr.initial(start)
-        while bool(st.alive.any()):
-            st = tr.step(st)
-            stats["bounce_steps"] += 1
-        sums, rays = tr.output(st)
-        _add_pixel_sums(film, sums, spp, start)
-        stats["rays"] = stats["rays"] + rays
-        stats["chunks"] += 1
+    try:
+        for start in range(0, total, chunk):
+            n = min(chunk, total - start)
+            if n not in traces:
+                traces[n] = pt.StreamedTrace(tables, meta, ptcfg, cam, spp, n, min(cfg.lanes, n),
+                                             intersect_fn=ifn, pixel_sums=True)
+            tr = traces[n]
+            if graphed:
+                sums, rays = tr(start, stats)
+            else:
+                st = tr.initial(start)
+                while bool(st.alive.any()):
+                    st = tr.step(st)
+                    stats["bounce_steps"] += 1
+                sums, rays = tr.output(st)
+            _add_pixel_sums(film, sums, spp, start)
+            stats["rays"] = stats["rays"] + rays
+            stats["chunks"] += 1
+    finally:
+        for tr in traces.values():
+            tr.close()
     return film_mod.scan(film).cpu().numpy().astype(np.float64)
 
 
-def graphed_trace(scene, idx, sqrtspp):
+def graphed_trace(scene, idx, sqrtspp, sort_rays=True):
     """The camera's image at sqrtspp^2 spp as one chunk through a StreamedTrace
-    at render()'s default lanes, driven to the end of bounce 1 with
-    traverse_kernel.traverse recorded: bounce 0 runs eagerly (launches 0 and
-    1), the capture records launches 2 and 3 (a bounce's primary and shadow
-    rays) and bounce 1 is its first replay. Launch 2's tensors are the graph's
-    static traversal inputs and outputs, which hold the last replay's values.
-    Returns (trace, recorder); the caller advances and closes the trace."""
+    at render()'s default lanes, its intersect made with `sort_rays`, driven
+    to the end of bounce 1 with traverse_kernel.traverse recorded: bounce 0
+    runs eagerly (launches 0 and 1), the capture records launches 2 and 3 (a
+    bounce's primary and shadow rays) and bounce 1 is its first replay.
+    Launch 2's tensors are the graph's static traversal inputs and outputs,
+    which hold the last replay's values. In lane order (sort_rays=False)
+    the launch reads the state's own ray buffers, which the replay then
+    overwrites with the next bounce's rays: its rays are kept as they were
+    before the replay. Returns (trace, recorder); the caller advances and
+    closes the trace."""
     import numpy as np
     import torch
 
@@ -1476,16 +1532,21 @@ def graphed_trace(scene, idx, sqrtspp):
     lanes = min(mt.RenderConfig().lanes, n)
     tables = scene.tables(np.float32, dev)
     meta = scene.meta()
-    ifn = cluster_bvh.make_intersect_fn(tables, meta, scene.build_cluster_bvh(np.float32, dev))
+    ifn = cluster_bvh.make_intersect_fn(tables, meta, scene.build_cluster_bvh(np.float32, dev),
+                                        sort_rays=sort_rays)
     rec = LaunchRecorder(tk, at=(2,))
     with mock.patch.object(tk, "traverse", rec):
         tr = pt.StreamedTrace(tables, meta, pt.PTConfig(), cam, sqrtspp ** 2, n, lanes,
                               intersect_fn=ifn, pixel_sums=True)
         tr.begin(0)
         tr.advance()
+        rays_in = (tr.state.origin.clone(), tr.state.direction.clone())
         tr.advance()
     torch.cuda.synchronize()
     check(tr.graph is not None, "render", "the bounce step was not captured at bounce 1")
+    cb, o, d, out = rec.seen[2]
+    if o.data_ptr() == tr.state.origin.data_ptr():
+        rec.seen[2] = (cb, *rays_in, out)
     return tr, rec
 
 
@@ -2261,21 +2322,23 @@ def bench_phase(scene, cbvh, card, render_rays_per_path):
           "the forward+backward point's rays or loss differ graphed and eagerly")
 
     # ---- 11b: the intersect in lane order ----
-    # coherence_key patched to the lane index: the stable sort keeps the lanes
-    # in order, so the kernel sees the rays as the integrator holds them.
+    # make_intersect_fn(sort_rays=False): the kernel sees the rays as the
+    # integrator holds them. Both orders render through render()'s streamed
+    # chunks, graphed (streamed_render).
     dev = cbvh.rec.device
     scene.cameras.append(dataclasses.replace(scene.cameras[0], width=SWITCH_WIDTH, height=SWITCH_WIDTH))
     ci = len(scene.cameras) - 1
     cfg_s = mt.RenderConfig(sqrtspp=2)
-    lane_order = lambda o, d, lo, hi: torch.arange(o.shape[0], device=o.device)
-    keys = {"sorted": cluster_bvh.coherence_key, "unsorted": lane_order}
+    tables_s = scene.tables(np.float32, dev)
+    orders = {"sorted": True, "unsorted": False}
     imgs, walls = {}, {}
-    for name, key in keys.items():
-        with mock.patch.object(cluster_bvh, "coherence_key", key):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            imgs[name] = mt.render(scene, ci, cfg_s)
-            walls[name] = time.perf_counter() - t0
+    for name, sort_rays in orders.items():
+        ifn_s = cluster_bvh.make_intersect_fn(tables_s, scene.meta(), cbvh, sort_rays=sort_rays)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs[name] = streamed_render(scene, ci, cfg_s, {}, ifn=ifn_s)
+        walls[name] = time.perf_counter() - t0
+    del tables_s, ifn_s
     bad, worst = images_apart(imgs["unsorted"], imgs["sorted"])
     log("bench", f"{SWITCH_WIDTH}x{SWITCH_WIDTH} 4 spp in lane order vs sorted: {bad} elements outside "
         f"rtol {IMG_RTOL} atol {IMG_ATOL}, largest |d| {worst:.3g}, hdr identical "
@@ -2283,11 +2346,9 @@ def bench_phase(scene, cbvh, card, render_rays_per_path):
         f"{walls['sorted']:.3f} s")
     check(bad == 0, "bench", "the render in lane order and the sorted render disagree")
     # Launch 2 (bounce 1's primary rays) of each order: the captured launch after
-    # its first replay. The patch is in place through the capture, which
-    # freezes the Python of the step.
-    for name, key in keys.items():
-        with mock.patch.object(cluster_bvh, "coherence_key", key):
-            tr, rec = graphed_trace(scene, ci, 2)
+    # its first replay.
+    for name, sort_rays in orders.items():
+        tr, rec = graphed_trace(scene, ci, 2, sort_rays=sort_rays)
         try:
             o, st = rec.seen[2][1], rec.seen[2][3][4].double()
             log("bench", f"{name} launch 2: {o.shape[0]} rays, {st.shape[0]} blocks, candidates per block "
@@ -2507,7 +2568,8 @@ def batch_phase(scene, cbvh, card, pm_dir):
 def kernel_phase(scene, j, cbvh, card, parent, rng):
     """Phase 3: the traversal kernel against its plain version on five ray sets,
     then timed per set at the main path's launch shape. Returns the per-set
-    timing rows and the largest |kernel - plain| of t, u and v."""
+    timing rows, the largest |kernel - plain| of t, u and v, and the first
+    `lanes` rays of each set (sorted as timed; "mixed" in lane order)."""
     import numpy as np
     import torch
 
@@ -2614,7 +2676,274 @@ def kernel_phase(scene, j, cbvh, card, parent, rng):
             log("kernel", f"cycles {name:8s} parent's kernel: {cycle_split(PARENT_CYCLES, pcyc)}; "
                 f"rounds {int(pst[:, 1].sum())} | {card}")
         torch.cuda.synchronize()
-    return timing, max_err
+    return timing, max_err, {name: (o[:lanes].contiguous(), d[:lanes].contiguous())
+                             for name, (o, d) in sorted_sets.items()}
+
+
+def traversal_row(out):
+    """(t, tri_id, u, v, stats) of cluster_bvh.traverse as a short text."""
+    st = out[4].tolist()
+    return f"hits {int((out[1] >= 0).sum())}, stats {st}"
+
+
+def timed_call(fn):
+    """(output, ms, peak MiB above what was allocated before) of one call of
+    `fn` on the card, its wall between two synchronisations (the walk and
+    best-first formulations read the host between their kernels)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def methods_phase(scene, cbvh, card, launch_sets, pm_dir):
+    """Phase 13: the JAX package's own traversal formulations on the card (13a)
+    and float64 there (13b). Returns the phase's wall in seconds."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    import mcrt_tpu_torch as mt
+    from mcrt_tpu_torch.accel import knn_kernel as kk
+    from mcrt_tpu_torch.accel import photon_grid as pg
+    from mcrt_tpu_torch.accel.bvh_build import build_bvh
+    from mcrt_tpu_torch.camera import film as film_mod
+    from mcrt_tpu_torch.camera import image as image_mod
+    from mcrt_tpu_torch.integrator import path_tracer as pt
+    from mcrt_tpu_torch.ops import cluster_bvh
+    from mcrt_tpu_torch.ops import traverse_kernel as tk
+    from mcrt_tpu_torch.parallel import sharding
+    from mcrt_tpu_torch.scene.synthetic import make_displaced_grid
+
+    t_phase = time.perf_counter()
+    dev = cbvh.rec.device
+    C = cbvh.rec.shape[0]
+
+    # ---- 13a: three formulations of the closest hit, float32 ----
+    from mcrt_tpu_torch.ops import intersect as isect
+    meta = scene.meta()
+    tables64 = scene.tables(np.float64, dev)
+    geo64 = isect.build_geo_pack(tables64)
+    t0 = time.perf_counter()
+    tree = scene.build_cluster_tree(np.float32, dev)
+    torch.cuda.synchronize()
+    tree_mib = sum(x.numel() * x.element_size() for x in tree if x is not None) / 2**20
+    log("methods", f"float32 cluster tree: {tree.skip.shape[0]} nodes, C={tree.tri_id.shape[0]} "
+        f"clusters of S={tree.tri_id.shape[1]}, {tree_mib:.1f} MiB, built in "
+        f"{time.perf_counter() - t0:.2f} s; one-hot tables: {tree.val0 is not None} "
+        f"(C > {cluster_bvh._ONEHOT_MAX_CLUSTERS}: the best-first gathers rows)")
+    check(tree.tri_id.shape[0] == C and tree.val0 is None, "methods",
+          "the tree's clusters are not the kernel's, or carry one-hot tables over 2048 clusters")
+    for name in ("camera", "surface", "shadow", "mixed"):
+        o, d = launch_sets[name]
+        outs = {}
+        for method in ("kernel", "walk", "bestfirst"):
+            tables = cbvh if method == "kernel" else tree
+            call = lambda: cluster_bvh.traverse(tables, o, d, method=method)
+            before = tk.kernel.launches
+            out, ms, peak = timed_call(call)
+            check((tk.kernel.launches > before) == (method == "kernel"), "methods",
+                  f"{name} {method}: the kernel was launched {tk.kernel.launches - before} times")
+            if method != "walk":   # the walk's one call is its time (seconds a call)
+                ms = min(timed_call(call)[1] for _ in range(2))
+            outs[method] = out
+            log("methods", f"13a {name:8s} {o.shape[0]} rays {method:9s}: {ms:10.3f} ms a call, "
+                f"{traversal_row(out)}, peak {peak:.1f} MiB above the inputs | {card}")
+        kid = outs["kernel"][1]
+        # Every method's t, u, v against the float64 recompute of its winning
+        # triangle (refine_tri_hit over float64 tables): their float32 forms
+        # lose precision at grazing incidence and on short hits, the kernel's
+        # global-frame forms most (phase 3 holds it to its plain version).
+        o64, d64 = o.double(), d.double()
+        scale = o64.norm(dim=1)
+        for method in ("kernel", "walk", "bestfirst"):
+            t, tid, u, v, _ = outs[method]
+            ex_t, ex_uv = isect.refine_tri_hit(tables64, meta, o64, d64, t.double(), tid,
+                                               torch.stack([u, v], 1).double(), geo=geo64)
+            hit = tid >= 0
+            cos = (tables64.tri_n[tid.clamp(min=0).long()] * d64).sum(1).abs()[hit]
+            err_t = ((t.double() - ex_t).abs() / (ex_t.abs() + scale))[hit]
+            err_uv = torch.maximum((u.double() - ex_uv[:, 0]).abs(),
+                                   (v.double() - ex_uv[:, 1]).abs())[hit]
+            same = float((tid == kid).double().mean())
+            at = lambda e: f"{float(e.max()):.3g} (|cos| there {float(cos[int(e.argmax())]):.3g})" \
+                if e.numel() else "none"
+            log("methods", f"13a {name:8s} {method:9s}: ids identical to the kernel's on "
+                f"{100 * same:.3f}% of rays ({int((tid != kid).sum())} differ); against the float64 "
+                f"recompute, |dt| / (t + |o|) max {at(err_t)}, |du|, |dv| max {at(err_uv)}")
+            if method != "kernel":
+                check(same >= 0.999 and bool((err_t <= 5e-6).all()) and bool((err_uv <= 5e-3).all()),
+                      "methods", f"{name}: {method} disagrees with the kernel or the float64 recompute")
+        if name == "mixed":
+            for method, out in outs.items():
+                check(bool((out[1][::2] == -1).all()), "methods", f"{method}: parked rays hit")
+    del tree, outs
+
+    # The one-hot gather, on a displaced grid of at most 2048 clusters.
+    v0, e1, e2 = make_displaced_grid(ONEHOT_GRID_N)
+    mins = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
+    maxs = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
+    flat = build_bvh(mins, maxs, kind="binary_sah", max_leaf=128, dtype=np.float32, strict_leaf=True)
+    small = cluster_bvh.upload_cluster_tree(flat, SimpleNamespace(tri_v0=v0, tri_e1=e1, tri_e2=e2),
+                                            np.float32, dev)
+    Cs = small.tri_id.shape[0]
+    check(small.val0 is not None and Cs <= cluster_bvh._ONEHOT_MAX_CLUSTERS, "methods",
+          f"the {2 * ONEHOT_GRID_N ** 2}-triangle grid has no one-hot tables ({Cs} clusters)")
+    rng = np.random.default_rng(13)
+    n = launch_sets["camera"][0].shape[0]
+    dd = np.concatenate([rng.uniform(-0.7, 0.7, (n, 2)), -np.ones((n, 1))], 1)
+    d = torch.as_tensor(dd / np.linalg.norm(dd, axis=1, keepdims=True), dtype=torch.float32,
+                        device=dev)
+    o = torch.tensor([[5.0, 5.0, 6.0]], device=dev).expand(n, 3).contiguous()
+    perm = torch.argsort(cluster_bvh.coherence_key(o, d, small.bb_min[0], small.bb_max[0]), stable=True)
+    o, d = o[perm].contiguous(), d[perm].contiguous()
+    rows = small._replace(val0=None, val1=None, val2=None)
+    call_oh = lambda: cluster_bvh.traverse(small, o, d, method="bestfirst")
+    call_rows = lambda: cluster_bvh.traverse(rows, o, d, method="bestfirst")
+    onehot, _, peak_oh = timed_call(call_oh)
+    plain, _, peak_rows = timed_call(call_rows)
+    ms_oh = min(timed_call(call_oh)[1] for _ in range(2))
+    ms_rows = min(timed_call(call_rows)[1] for _ in range(2))
+    same = all(torch.equal(a, b) for a, b in zip(onehot, plain))
+    log("methods", f"13a one-hot gather on a {2 * ONEHOT_GRID_N ** 2}-triangle grid ({Cs} clusters), "
+        f"{n} camera rays: {traversal_row(onehot)}; bit for bit the row gather's: {same}; "
+        f"{ms_oh:.3f} ms a call (peak {peak_oh:.1f} MiB) against {ms_rows:.3f} ms ({peak_rows:.1f} "
+        f"MiB) for the row gather | {card}")
+    check(same, "methods", "the one-hot gather and the row gather differ")
+    del small, rows, onehot, plain
+    t13a = time.perf_counter() - t_phase
+    log("methods", f"13a took {t13a:.1f} s | {card}")
+
+    # ---- 13b: float64 on the card ----
+    # 1. render() at 512x512, 1 spp, 64 bounces in float64 (best-first, every
+    # step eager) against the float32 kernel render of the same settings.
+    t1 = time.perf_counter()
+    cfg32 = mt.RenderConfig(sqrtspp=1, max_bounces=64)
+    cfg64 = mt.RenderConfig(sqrtspp=1, max_bounces=64, dtype="float64")
+    st32, st64 = {}, {}
+    img32 = mt.render(scene, 0, cfg32, stats=st32)
+    t0 = time.perf_counter()
+    scene.build_cluster_bvh(np.float64, dev)
+    scene.build_cluster_tree(np.float64, dev)
+    torch.cuda.synchronize()
+    t_tables = time.perf_counter() - t0
+    tk.kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img64 = mt.render(scene, 0, cfg64, stats=st64)
+    torch.cuda.synchronize()
+    wall64 = time.perf_counter() - t0
+    peak64 = torch.cuda.max_memory_allocated() / 2**30
+    fin = lambda x: np.clip(image_mod.finalize(x, scene.cameras[0].image), 0.0, 1.0)
+    diff = np.abs(fin(img64) - fin(img32))
+    per_channel = np.abs(fin(img64).mean(axis=(0, 1)) - fin(img32).mean(axis=(0, 1)))
+    p95 = float(np.percentile(diff, 95))
+    log("methods", f"13b float64 render 512x512 1 spp 64 bounces ({scene.n_tris} triangles): wall "
+        f"{wall64:.3f} s ({st64['bounce_steps']} eager bounce steps, graphed {st64['graphed']}, "
+        f"kernel launches {tk.kernel.launches}), peak {peak64:.3f} GiB, rays {int(st64['rays'])}; the "
+        f"float64 tables and tree built beforehand in {t_tables:.2f} s; the float32 kernel render "
+        f"graphed {st32['graphed']}, rays {int(st32['rays'])}; float64 against float32: per-channel "
+        f"mean diff {per_channel.max():.3g}, p95 {p95:.3g}, mean {diff.mean():.3g} | {card}")
+    check(st64["graphed"] is False and st32["graphed"] is True and tk.kernel.launches == 0, "methods",
+          "the float64 render captured a step or launched the kernel, or the float32 one did not capture")
+    check(bool(np.isfinite(img64).all()) and img64.shape == img32.shape, "methods", "bad float64 image")
+    check(bool(np.all(per_channel < 0.02)) and p95 < 0.25 and diff.mean() < 0.05, "methods",
+          "the float64 render and the float32 kernel render disagree")
+    del img32, img64
+
+    # 2. The 64x64 camera at 1 spp, 8 bounces in float64 on the card and on the
+    # CPU (whose default route is the kernel's plain version): the images, and
+    # one train step's loss and gradients.
+    t0 = time.perf_counter()
+    scene.cameras.append(dataclasses.replace(scene.cameras[0], width=F64_CHECK_WIDTH,
+                                             height=F64_CHECK_WIDTH))
+    ci = len(scene.cameras) - 1
+    cam = scene.cameras[ci]
+    cfg_s = mt.RenderConfig(sqrtspp=1, max_bounces=CHECK_GRAD_BOUNCES, dtype="float64")
+    walls, imgs, out = {}, {}, {}
+    lin = np.arange(cam.width * cam.height)
+    target = np.random.default_rng(14).random((cam.height, cam.width, 3)) * 0.5
+    for where in ("cuda", "cpu"):
+        on = dev if where == "cuda" else torch.device("cpu")
+        st = {}
+        t1 = time.perf_counter()
+        imgs[where] = mt.render(scene, ci, cfg_s, device=on, stats=st)
+        walls[where] = time.perf_counter() - t1
+        check(st["graphed"] is False, "methods", f"the 64x64 float64 render on {where} captured a step")
+        tables = scene.tables(np.float64, on)
+        cb = scene.build_cluster_bvh(np.float64, on)
+        tree = scene.build_cluster_tree(np.float64, on) if where == "cuda" else None
+        step = sharding.train_step(scene.meta(), pt.PTConfig(max_bounces=CHECK_GRAD_BOUNCES), cam,
+                                   film_mod.FilmConfig.from_json(cam.width, cam.height, cam.film),
+                                   torch.float64, with_bvh=True, device=on, tree=tree)
+        params = {k: getattr(tables, k) for k in sharding.DEFAULT_TRAIN_PARAMS}
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        ix = torch.as_tensor(lin, device=on)
+        loss, grads = step(tables, cb, params, ix % cam.width, ix // cam.width, torch.zeros_like(ix),
+                           target)
+        out[where] = (float(loss), {k: g.cpu() for k, g in grads.items()}, len(step.graphs),
+                      time.perf_counter() - t1, torch.cuda.max_memory_allocated() / 2**30)
+    bad = np.abs(imgs["cuda"] - imgs["cpu"]) > 1e-9 * np.abs(imgs["cpu"]) + 1e-12
+    apart = {k: float((out["cuda"][1][k] - g).abs().max() / max(float(g.abs().max()), 1e-300))
+             for k, g in out["cpu"][1].items()}
+    rel = np.abs(imgs["cuda"] - imgs["cpu"]) / np.maximum(np.abs(imgs["cpu"]), 1e-300)
+    log("methods", f"13b {cam.width}x{cam.height} 1 spp {CHECK_GRAD_BOUNCES} bounces float64, card "
+        f"against CPU: render walls {walls['cuda']:.3f} and {walls['cpu']:.3f} s, {int(bad.sum())} "
+        f"elements outside rtol 1e-9 atol 1e-12, largest relative |d| {float(rel.max()):.3g}; "
+        f"train step walls {out['cuda'][3]:.3f} and {out['cpu'][3]:.3f} s, losses "
+        f"{out['cuda'][0]:.12g} and {out['cpu'][0]:.12g}, gradients apart by at most "
+        f"{max(apart.values()):.3g} of each table's largest |g| ({apart}), captured trips on the "
+        f"card {out['cuda'][2]}, the card's peak {out['cuda'][4]:.3f} GiB | {card}")
+    check(int(bad.sum()) == 0, "methods", "the float64 renders on the card and the CPU disagree")
+    check(abs(out["cuda"][0] - out["cpu"][0]) <= 1e-9 * abs(out["cpu"][0]) and out["cuda"][2] == 0
+          and max(apart.values()) <= 1e-9 and float(out["cpu"][1]["mat_reflectance"].abs().max()) > 0,
+          "methods", "the float64 train step on the card and on the CPU disagree")
+    del imgs, out
+    log("methods", f"13b.2 took {time.perf_counter() - t0:.1f} s | {card}")
+
+    # 3. A float64 exact k-NN on phase 6's maps: capped search plus brute force
+    # on the card (no kernel), against the CPU.
+    t0 = time.perf_counter()
+    k = PHOTON_MAP["k_nearest_photons"]
+    q, _ = surface_rays(scene, KNN64_QUERIES, rng)
+    for name in ("caustic", "global"):
+        (path,) = pathlib.Path(pm_dir).glob(f"photons_{name}_*.npz")
+        res = {}
+        for where in ("cuda", "cpu"):
+            on = dev if where == "cuda" else torch.device("cpu")
+            g = pg.load_photon_grid(path, on)
+            a = g.arrays
+            g = dataclasses.replace(g, arrays=a._replace(pos=a.pos.double(), direction=a.direction.double(),
+                                                         flux=a.flux.double()))
+            for kern in kk.KERNELS:
+                kern.launches = 0
+            stats = {}
+            t1 = time.perf_counter()
+            d2, idx, valid, _ = pg.knn(g, g.arrays, torch.as_tensor(q, device=on), k, exact=True,
+                                       stats=stats)
+            if where == "cuda":
+                torch.cuda.synchronize()
+            res[where] = (d2.cpu(), idx.cpu(), valid.cpu(), time.perf_counter() - t1,
+                          int(stats["knn_flagged"]), sum(kern.launches for kern in kk.KERNELS))
+        same = torch.equal(res["cuda"][1], res["cpu"][1]) and torch.equal(res["cuda"][2], res["cpu"][2])
+        d2_ok = bool(torch.allclose(res["cuda"][0], res["cpu"][0], rtol=1e-12, atol=0.0))
+        log("methods", f"13b float64 exact k-NN, {name} map ({g.n_photons} photons), {KNN64_QUERIES} "
+            f"queries, k = {k}: ids identical {same}, d2 within rtol 1e-12 {d2_ok}; flagged for the "
+            f"brute force {res['cuda'][4]} (CPU {res['cpu'][4]}); k-NN kernel launches "
+            f"{res['cuda'][5]}; walls {res['cuda'][3]:.3f} s on the card, {res['cpu'][3]:.3f} s on the "
+            f"CPU | {card}")
+        check(same and d2_ok and res["cuda"][5] == 0, "methods",
+              f"{name}: the float64 exact k-NN on the card is not the CPU's, or ran a kernel")
+    log("methods", f"13b.3 took {time.perf_counter() - t0:.1f} s | {card}")
+    return time.perf_counter() - t_phase
 
 
 def main() -> int:
@@ -2673,7 +3002,7 @@ def main() -> int:
     # ---- 3. kernel against plain ----
     rng = np.random.default_rng(1234)
     cam = scene.cameras[0]
-    timing, max_err = kernel_phase(scene, j, cbvh, card, parent, rng)
+    timing, max_err, launch_sets = kernel_phase(scene, j, cbvh, card, parent, rng)
 
     # ---- 4. main path at full size ----
     cfg = mt.RenderConfig(max_bounces=64)
@@ -2830,7 +3159,7 @@ def main() -> int:
           "kernel render and plain render disagree")
 
     # ---- 6-8. the photon mapper ----
-    pm_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_photons_")   # phases 6, 7 and 12
+    pm_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_photons_")   # phases 6, 7, 12 and 13
     pm_dir = pm_tmp.name
     pm_trav, pm_launches, pm_maps = photon_phase(scene, card, pm_dir)
     photon_replay_phase(scene, pm_maps, card)
@@ -2860,9 +3189,14 @@ def main() -> int:
     # ---- 12. the batch chunks of both integrators ----
     t12 = time.perf_counter()
     batch_phase(scene, cbvh, card, pm_dir)
-    pm_tmp.cleanup()
     log("done", f"phase 12 took {time.perf_counter() - t12:.1f} s, the whole run "
         f"{time.perf_counter() - t_start:.1f} s | {card}")
+
+    # ---- 13. the JAX package's traversal formulations, and float64 on the card ----
+    t13 = methods_phase(scene, cbvh, card, launch_sets, pm_dir)
+    pm_tmp.cleanup()
+    log("done", f"phase 13 took {t13:.1f} s, the whole run {time.perf_counter() - t_start:.1f} s "
+        f"| {card}")
 
     mean = lambda key: sum(r[key] for r in timing.values()) / len(timing)
     kernels = [{

@@ -20,9 +20,9 @@ the fastest axis. A query reads the photons of the 27 cells around it:
   map. The brute force computes every row and the flagged ones are
   selected, as in the JAX package, whose `lax.cond` skips it when no row is
   flagged; here it always runs, so that this path too syncs nothing and
-  can be captured into a CUDA graph.
-
-On the card, float64 queries raise in exact mode: the kernels take float32.
+  can be captured into a CUDA graph. Float64 queries take this route on the
+  card too (the kernels take float32), as the JAX package's non-Pallas
+  exact route.
 """
 from __future__ import annotations
 
@@ -263,15 +263,11 @@ def knn_counted(grid: PhotonGrid, arrays: PhotonGridArrays, points, k: int, mask
     host. Returns ((d2, idx, valid, w), counts)."""
     dtype = points.dtype
     dev = points.device
-    if dev.type == "cuda" and dtype != torch.float32:
-        raise ValueError("knn(exact=True) on the card takes float32 queries "
-                         "(the k-NN kernels are float32)")
-    Q = points.shape[0]
-    queries = (torch.full((1,), Q, dtype=torch.int64, device=dev) if mask is None
-               else mask.sum().view(1))
+    queries = lambda: (torch.full((1,), points.shape[0], dtype=torch.int64, device=dev)
+                       if mask is None else mask.sum().view(1))
     if _knn_kernel_ok(grid, dtype, k):
         r = knn_kernel.knn(grid, arrays, points, k, mask=mask)
-        return (r.d2, r.idx, r.valid, r.w), torch.cat([queries, r.queued.to(torch.int64)])
+        return (r.d2, r.idx, r.valid, r.w), torch.cat([queries(), r.queued.to(torch.int64)])
     res, touched_trunc = _knn_capped(grid, arrays, points, k)
     N = grid.n_photons
     flagged = torch.zeros((1,), dtype=torch.int64, device=dev)
@@ -281,7 +277,7 @@ def knn_counted(grid: PhotonGrid, arrays: PhotonGridArrays, points, k: int, mask
             inexact = inexact & mask
         res = _exact_fallback(arrays, points, k, N, res, inexact)
         flagged = inexact.sum().view(1)
-    return res, torch.cat([queries, flagged, torch.zeros_like(flagged)])
+    return res, torch.cat([queries(), flagged, torch.zeros_like(flagged)])
 
 
 def add_knn_stats(stats: dict, counts, calls: int = 1):

@@ -2,9 +2,9 @@
 
 A renderer's parameters are its scene tables, its acceleration structure and,
 for the photon mapper, its photon maps. These functions build the port's
-`SceneTables`, `ClusterBVH` and `PhotonGrid` from numpy arrays — the port's
-own loader, or `np.asarray` of every field of the JAX package's objects — so
-both packages can compute on identical inputs.
+`SceneTables`, `ClusterBVH`, `ClusterTree` and `PhotonGrid` from numpy
+arrays — the port's own loader, or `np.asarray` of every field of the JAX
+package's objects — so both packages can compute on identical inputs.
 """
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from .accel.photon_grid import PhotonGrid, PhotonGridArrays
-from .ops.cluster_bvh import ClusterBVH, cluster_tables_numpy
+from .ops.cluster_bvh import (_ONEHOT_MAX_CLUSTERS, ClusterBVH, ClusterTree, cluster_tables_numpy,
+                               onehot_split)
 from .scene.loader import SceneTables
 from .utils.device import resolve_device, torch_dtype
 
@@ -57,6 +58,29 @@ def cluster_bvh_from_numpy(bb_min, bb_max, first, count, prim_order, tri_v0, tri
         bb_lo=torch.as_tensor(bb_min[0], device=device).to(fdt),
         bb_hi=torch.as_tensor(bb_max[0], device=device).to(fdt),
     )
+
+
+def cluster_tree_from_numpy(bb_min, bb_max, skip, node_cluster, feat, tri_id, center, cl_bb_min,
+                            cl_bb_max, device=None, dtype=np.float32) -> ClusterTree:
+    """ClusterTree from the JAX package's ClusterBVH fields of the same names
+    (or the port's cluster_tree_numpy): node AABBs, skip links and leaf
+    clusters, the per-cluster forms, triangle ids and centers, and the
+    cluster AABBs. Floating tables become `dtype`, the links int64 and the
+    ids int32; float32 tables of at most _ONEHOT_MAX_CLUSTERS clusters also
+    get the bf16 split for the one-hot gather (ClusterTree.val0/1/2)."""
+    device = resolve_device(device)
+    fdt = torch_dtype(dtype)
+    f = lambda x: torch.as_tensor(np.array(x, np.float64), device=device).to(fdt)
+    i = lambda x, dt: torch.as_tensor(np.asarray(x).astype(dt), device=device)
+    tree = ClusterTree(
+        bb_min=f(bb_min), bb_max=f(bb_max), skip=i(skip, np.int64),
+        node_cluster=i(node_cluster, np.int64), feat=f(feat), tri_id=i(tri_id, np.int32),
+        center=f(center), cl_bb_min=f(cl_bb_min), cl_bb_max=f(cl_bb_max),
+        val0=None, val1=None, val2=None)
+    if fdt == torch.float32 and tree.feat.shape[0] <= _ONEHOT_MAX_CLUSTERS:
+        tree = tree._replace(**dict(zip(("val0", "val1", "val2"),
+                                        onehot_split(tree.feat, tree.tri_id, tree.center))))
+    return tree
 
 
 def photon_grid_from_numpy(pos, direction, flux, cell_start, bb_min, cell_size, dims, m_per_cell,

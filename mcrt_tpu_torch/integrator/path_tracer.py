@@ -48,6 +48,7 @@ class PTConfig:
     min_ray_depth: int = 3            # RR kicks in past this many diffuse bounces
     min_priority_ray_depth: int = 16  # ... or this many total bounces
     ior_stack_size: int = 8
+    sky: bool = True                  # add the sky gradient on a miss
     global_seed: int = 0
 
 
@@ -73,6 +74,21 @@ def sky_color(direction):
     dy = torch.clamp(direction[..., 1], -1.0, 1.0)
     fy = (1.0 + torch.arcsin(dy) / torch.pi) / 2.0
     return torch.stack([1.0 - fy, 0.5 * (1.0 - fy) + 0.5 * fy, fy], dim=-1)
+
+
+def scene_bounds(tables: SceneTables, meta: SceneMeta):
+    """Conservative scene AABB (lo (3,), hi (3,)) from the tables: every
+    triangle's vertices, sphere's box and quadric's box."""
+    pts = [tables.tri_v0, tables.tri_v0 + tables.tri_e1, tables.tri_v0 + tables.tri_e2]
+    los = [p.amin(dim=0) for p in pts]
+    his = [p.amax(dim=0) for p in pts]
+    if meta.n_sphs:
+        los.append((tables.sph_origin - tables.sph_radius[:, None]).amin(dim=0))
+        his.append((tables.sph_origin + tables.sph_radius[:, None]).amax(dim=0))
+    if meta.n_quads:
+        los.append(tables.quad_bb_min.amin(dim=0))
+        his.append(tables.quad_bb_max.amax(dim=0))
+    return torch.stack(los).amin(dim=0), torch.stack(his).amax(dim=0)
 
 
 class PathState(NamedTuple):
@@ -151,7 +167,9 @@ def make_bounce_step(
     intersect's leaves; `rebind(leaves)` builds the same step over others of
     the same shapes, and `key` names the rest of what it depends on (as
     utils/cuda_graph.GraphedTrip asks). An intersect without `leaves` is
-    read where it is, and keyed by its identity."""
+    read where it is, and keyed by its identity. The step's `capturable` is
+    the intersect's (True when it has none): a step whose intersect reads
+    the host cannot be captured, and the loops run it eagerly."""
     dtype = tables.tri_v0.dtype
     eps = ray_offset_eps(dtype)
     K = cfg.ior_stack_size
@@ -170,10 +188,11 @@ def make_bounce_step(
             step.counted = True
             trav_steps = trav_steps + hit.steps
         missed = hit.surf_id < 0
-        # Sky gradient on miss.
-        radiance = st.radiance + torch.where(
-            (st.alive & missed)[:, None], st.throughput * sky_color(st.direction),
-            torch.zeros_like(st.radiance))
+        radiance = st.radiance
+        if cfg.sky:   # sky gradient on miss
+            radiance = radiance + torch.where(
+                (st.alive & missed)[:, None], st.throughput * sky_color(st.direction),
+                torch.zeros_like(st.radiance))
         alive = st.alive & ~missed
 
         ix = common.interaction_setup(
@@ -332,6 +351,7 @@ def make_bounce_step(
         )
 
     step.counted = False
+    step.capturable = getattr(intersect_fn, "capturable", True)
     bound = hasattr(intersect_fn, "leaves")
     step.leaves = (tables, packs, None if regen is None else regen.consts,
                    intersect_fn.leaves if bound else None)
@@ -411,16 +431,18 @@ def _checkpointed(step):
 
 def _graph_trips(device) -> bool:
     """Whether rematerialised trips on `device` replay captured graphs: on
-    the card they do."""
+    the card they do, for a step that is capturable (_run_trips asks)."""
     return device.type == "cuda"
 
 
 def _run_trips(step, st, trips: int, remat: bool, graphs: dict | None = None):
     """`trips` steps with no host sync, each rematerialised when `remat`:
     on the card through a GraphedTrip, found in `graphs` by its key or
-    captured and kept there (None: kept for this call alone); elsewhere, and
-    without remat, eagerly."""
-    if remat and trips and _graph_trips(st.origin.device):
+    captured and kept there (None: kept for this call alone); elsewhere,
+    without remat, and for a step that is not capturable (its intersect
+    reads the host: walk or best-first), eagerly, each trip under
+    torch.utils.checkpoint when `remat`."""
+    if remat and trips and _graph_trips(st.origin.device) and getattr(step, "capturable", True):
         graphs = {} if graphs is None else graphs
         key = cuda_graph.GraphedTrip.key(step, st)
         if key not in graphs:
@@ -467,7 +489,8 @@ def trace(
     checkpoints every step, so the backward pass stores one PathState per
     bounce and recomputes the rest; on the card each step replays captured
     graphs, kept in `graphs` for later calls of the same shapes (see
-    _run_trips)."""
+    _run_trips). An intersect that is not capturable (walk, best-first)
+    runs every step eagerly, on the card too."""
     if intersect_fn is None:
         intersect_fn = isect.make_brute_fn(tables, meta)
     step = make_bounce_step(tables, meta, cfg, intersect_fn)
@@ -516,10 +539,10 @@ class BatchTrace(cuda_graph.GraphedLoop):
     bounce at a time (utils/cuda_graph.GraphedLoop): on the card the first
     bounce runs eagerly, the second captures the step as a CUDA graph, and
     every later bounce, of this batch and the later ones, is one replay; a
-    capture that fails raises. On the CPU every bounce calls the step, over
-    the same static leaves. The loop runs while any lane is alive and the
-    slowest lane is below max_bounces, the JAX package's condition, read once
-    a bounce. Returns (radiance, rays traced, the primary intersects'
+    capture that fails raises. On the CPU, and on the card for a step that
+    is not capturable, every bounce calls the step, over the same static
+    leaves. The loop runs while any lane is alive and the slowest lane is
+    below max_bounces, the JAX package's condition, read once a bounce. Returns (radiance, rays traced, the primary intersects'
     Hit.steps summed, bounce steps, whether the intersect reported them),
     the tensors copies: the next batch reuses the buffers."""
 
@@ -567,8 +590,9 @@ class StreamedTrace(cuda_graph.GraphedLoop):
     the second captures one bounce step over those buffers as a CUDA graph
     (utils/cuda_graph.GraphedLoop, CapturedStep); from then on, in this chunk
     and the later ones, a bounce is one replay. A capture that fails raises. On
-    the CPU every bounce calls the step eagerly. `close()` releases the graph
-    and its pool.
+    the CPU, and on the card when the intersect is not capturable (walk,
+    best-first: `graphed` is then False), every bounce calls the step
+    eagerly. `close()` releases the graph and its pool.
 
     begin(start) and advance() are the same run one bounce at a time, and
     `state` is the state after the last bounce (on the card, the static
@@ -667,8 +691,9 @@ def trace_streamed(
 
     fixed_trips: None (the forward render) runs until every path drained, one
     host sync per bounce, through a one-shot StreamedTrace (on the card, a
-    captured bounce step). An int runs exactly that many steps with no host
-    sync, which autograd can reverse: the differentiable wavefront, each trip
+    captured bounce step, unless the intersect is not capturable). An int
+    runs exactly that many steps with no host sync, which autograd can
+    reverse: the differentiable wavefront, each trip
     rematerialised when `remat` (on the card, replayed graphs kept in
     `graphs`; see _run_trips). Paths still in flight when the trips
     run out add their partial radiance (truncation, as at max_bounces); paths

@@ -25,7 +25,9 @@ the jitted streamed and batch eye passes) are `_EmissionRun`,
 `StreamedEyePass` and `BatchEyePass`: one step built per shape, whose
 chunk-dependent inputs ride in the state, so on the card it is captured once
 as a CUDA graph and replayed for every later step of every chunk
-(utils/cuda_graph.GraphedLoop).
+(utils/cuda_graph.GraphedLoop), unless the intersect is not capturable (the
+walk and best-first traversals, which float64 tables take on the card): then
+every step runs eagerly.
 """
 from __future__ import annotations
 
@@ -217,6 +219,7 @@ def _make_emission_step(tables, meta, cfg: PMConfig, intersect_fn, flux_pp):
             g_cnt=g_cnt,
         )
 
+    step.capturable = getattr(intersect_fn, "capturable", True)
     return step
 
 
@@ -246,11 +249,11 @@ class _EmissionRun(cuda_graph.GraphedLoop):
     and its length ride in the state; the JAX package compiles its run_chunk
     once per static (n_chunk, cap) instead. On the card the first step runs
     eagerly, the second is captured as a CUDA graph and every later step of
-    every chunk is one replay (utils/cuda_graph.GraphedLoop); on the CPU
-    every step runs eagerly. Calling it with a chunk's (light ids, emission
-    ids) runs the chunk to its end and returns its (caustic, global) store
-    counts; the rows are in `state.c_buf` and `state.g_buf` until the next
-    chunk is loaded."""
+    every chunk is one replay (utils/cuda_graph.GraphedLoop); on the CPU,
+    and for an intersect that is not capturable, every step runs eagerly.
+    Calling it with a chunk's (light ids, emission ids) runs the chunk to its
+    end and returns its (caustic, global) store counts; the rows are in
+    `state.c_buf` and `state.g_buf` until the next chunk is loaded."""
 
     def __init__(self, tables, meta, cfg: PMConfig, intersect_fn, flux_pp, lanes: int,
                  rows: int, cap: int):
@@ -318,7 +321,8 @@ def emit_photons(
     _EmissionRun. The store buffers hold STORE_MARGIN x ECH rows; a chunk that
     stores more into either is run again through a run with buffers of its
     counted size, which serves the later chunks. With a `stats` dict,
-    "emission_steps" and "emission_reruns" are added to it."""
+    "emission_steps" and "emission_reruns" are added to it, and "graphed"
+    is False unless every chunk replayed a captured step."""
     stats = {} if stats is None else stats
     dtype = tables.tri_v0.dtype
     dev = tables.tri_v0.device
@@ -352,6 +356,7 @@ def emit_photons(
                 run.close()
                 run = new_run(cap)
                 c_n, g_n = run(*chunk, stats)
+            stats["graphed"] = stats.get("graphed", True) and run.graphed
             # Copied to the host before the next chunk reuses the buffers.
             out["caustic"].append(run.state.c_buf[:c_n].cpu().numpy())
             out["global"].append(run.state.g_buf[:g_n].cpu().numpy())
@@ -643,6 +648,7 @@ def _make_eye_step(tables: SceneTables, meta: SceneMeta, cfg: PMConfig, maps: Ph
             next_path=next_path, out_rad=out_rad, start=st.start, knn=knn,
         )
 
+    step.capturable = getattr(intersect_fn, "capturable", True)
     return step
 
 
@@ -702,7 +708,8 @@ class BatchEyePass(cuda_graph.GraphedLoop):
     host sync a bounce: on the card the first bounce runs eagerly, the second
     captures the step as a CUDA graph, and every later bounce, of this batch
     and the later ones, is one replay (utils/cuda_graph.GraphedLoop); a
-    capture that fails raises. On the CPU every bounce calls the step. Returns
+    capture that fails raises. On the CPU, and for an intersect that is not
+    capturable, every bounce calls the step. Returns
     the (R, 3) radiance (a copy: the next batch reuses the buffers); with a
     `stats` dict, adds what trace adds. `close()` releases the graph and its
     pool."""
@@ -742,11 +749,11 @@ class StreamedEyePass(cuda_graph.GraphedLoop):
     first bounce runs eagerly (it builds the kernels and runs the k-NN's
     launch-shape query), the second captures the step as a CUDA graph, and
     every later bounce of this chunk and the later ones is one replay
-    (utils/cuda_graph.GraphedLoop); a capture that fails raises. On the CPU
-    every bounce calls the step eagerly. `close()` releases the graph and its
-    pool. begin(start), advance() and `state` are the same run one bounce at
-    a time; initial(start), `step` and output(state) the pieces of an eager
-    loop."""
+    (utils/cuda_graph.GraphedLoop); a capture that fails raises. On the CPU,
+    and for an intersect that is not capturable, every bounce calls the step
+    eagerly. `close()` releases the graph and its pool. begin(start),
+    advance() and `state` are the same run one bounce at a time;
+    initial(start), `step` and output(state) the pieces of an eager loop."""
 
     def __init__(self, tables: SceneTables, meta: SceneMeta, cfg: PMConfig, maps: PhotonMaps,
                  cam, spp: int, n_paths: int, lanes: int, intersect_fn: Callable | None = None):

@@ -207,6 +207,40 @@ def intersect_brute(tables: SceneTables, meta: SceneMeta, origin, direction) -> 
     return Hit(t=best_t, surf_id=best_id, uv=best_uv)
 
 
+def surface_normal(tables: SceneTables, meta: SceneMeta, surf_id, position):
+    """Outward geometric normal at `position` for each surface id (gather +
+    dispatch). The integrator reads its packed form (integrator/common.py)."""
+    sid = torch.clamp(surf_id, min=0)
+    tri_id = _long(torch.clamp(sid, 0, max(meta.n_tris - 1, 0)))
+    sph_id = _long(torch.clamp(sid - meta.sphere_offset, 0, max(meta.n_sphs - 1, 0)))
+    quad_id = _long(torch.clamp(sid - meta.quad_offset, 0, max(meta.n_quads - 1, 0)))
+
+    n = tables.tri_n[tri_id]
+    if meta.n_sphs:
+        sph_n = (position - tables.sph_origin[sph_id]) / tables.sph_radius[sph_id][:, None]
+        n = torch.where((sid >= meta.sphere_offset)[:, None], sph_n, n)
+    if meta.n_quads:
+        p4 = torch.cat([position, torch.ones_like(position[..., :1])], dim=-1)
+        grad = torch.einsum("rij,rj->ri", tables.quad_G[quad_id], p4)
+        n = torch.where((sid >= meta.quad_offset)[:, None], g.normalize(grad), n)
+    return n
+
+
+def shading_normal(tables: SceneTables, meta: SceneMeta, surf_id, uv, geom_n, direction):
+    """Interpolated shading normal with geometric fallback when the interpolated
+    normal flips sides relative to the ray (reference interaction.cpp:23-30)."""
+    sid = torch.clamp(surf_id, min=0)
+    tri_id = _long(torch.clamp(sid, 0, max(meta.n_tris - 1, 0)))
+    is_tri = sid < meta.sphere_offset
+    interp = is_tri & tables.tri_interp[tri_id]
+    vn = tables.tri_vn[tri_id]  # (R, 3, 3)
+    u, v = uv[..., 0:1], uv[..., 1:2]
+    sn = g.normalize((1.0 - u - v) * vn[:, 0] + u * vn[:, 1] + v * vn[:, 2])
+    flip_mismatch = (g.dot(direction, geom_n) < 0.0) != (g.dot(direction, sn) < 0.0)
+    use_interp = interp & ~flip_mismatch
+    return torch.where(use_interp[:, None], sn, geom_n)
+
+
 def make_brute_fn(tables: SceneTables, meta: SceneMeta):
     """intersect_brute over `tables` as an intersect closure, with the
     `leaves` (the tables), `rebind` and `key` of cluster_bvh.make_intersect_fn."""

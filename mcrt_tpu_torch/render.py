@@ -17,6 +17,9 @@ the checkpoint directory; on the card the emission replays a captured step),
 then runs the photon eye pass over the same chunks (one
 `photon_mapper.StreamedEyePass`, or with `streamed=False` one
 `photon_mapper.BatchEyePass`, per chunk size, replayed as the path tracer's).
+Float64 tables on the card traverse best-first (ops/cluster_bvh), whose loop
+the host drives, so those loops run every step eagerly; stats["graphed"]
+says which route a render took.
 """
 from __future__ import annotations
 
@@ -54,6 +57,20 @@ class RenderConfig:
     # lanes; a lane whose path dies immediately loads the next one.
     streamed: bool = True
     lanes: int = 1 << 14
+
+
+def build_device_bvh(scene: Scene, tables, dtype, device=None):
+    """ClusterBVH on `device` when the scene requests a BVH, else None."""
+    return scene.build_cluster_bvh(np.dtype(dtype), device)
+
+
+def build_device_tree(scene: Scene, cbvh, device=None):
+    """The cluster tree that cluster_bvh.make_intersect_fn's default method
+    reads on `cbvh` (best-first, for float64 tables on the card), else None:
+    the kernel route needs none."""
+    if cbvh is None or cluster_bvh.default_method(cbvh) == "kernel":
+        return None
+    return scene.build_cluster_tree(np.dtype(str(cbvh.rec.dtype).removeprefix("torch.")), device)
 
 
 def _ckpt_key(cfg: RenderConfig, cam, spp: int, scene_hash: str) -> str:
@@ -212,10 +229,14 @@ def render(
     there periodically and a matching checkpoint is resumed; a mismatched one
     (other resolution/spp/seed/scene) is ignored. Photon maps are saved there
     too, and reused by a render with the same photon settings.
-    stats: if a dict, receives "chunks" and "bounce_steps" (host
+    stats: if a dict, receives "chunks", "bounce_steps" (host
     synchronisations of the bounce loops: one a bounce step, which on the
-    card is one replay of a captured graph after each run's first two); the
-    path tracer adds "rays" (a device count), the photon mapper
+    card is one replay of a captured graph after each run's first two) and
+    "graphed" (whether the chunk loops replayed captured graphs: False on
+    the CPU, and for float64 tables on the card, whose best-first traversal
+    runs every step eagerly; the photon pass's loop included); the path
+    tracer adds "rays" (a device count),
+    the photon mapper
     "photons_caustic", "photons_global", "photon_pass_s", "emission_steps"
     and the k-NN counts of photon_grid.knn.
     verbose: print the photon emission and a per-chunk progress line.
@@ -227,6 +248,7 @@ def render(
                   # BatchEyePass) per chunk size
     dtype = torch_dtype(cfg.dtype)
     stats = {} if stats is None else stats
+    stats.pop("graphed", None)   # this render's: the photon pass's and the chunk loop's
     cam = scene.cameras[camera_idx]
     sqrtspp = cfg.sqrtspp if cfg.sqrtspp is not None else cam.sqrtspp
     spp = sqrtspp * sqrtspp
@@ -234,8 +256,9 @@ def render(
     tables = scene.tables(dtype, device)
     meta = scene.meta()
     film_cfg = film_mod.FilmConfig.from_json(cam.width, cam.height, cam.film)
-    cbvh = scene.build_cluster_bvh(np.dtype(cfg.dtype), device)
-    intersect_fn = cluster_bvh.make_intersect_fn(tables, meta, cbvh) if cbvh is not None else None
+    cbvh = build_device_bvh(scene, tables, cfg.dtype, device)
+    intersect_fn = None if cbvh is None else cluster_bvh.make_intersect_fn(
+        tables, meta, cbvh, tree=build_device_tree(scene, cbvh, device))
 
     if cfg.integrator == "photon_mapper":
         pmcfg = pm.PMConfig.from_json(scene.photon_map_config, max_eye_bounces=cfg.max_bounces,
@@ -318,6 +341,8 @@ def render(
                     eta = (total - done) / rate if rate > 0 else float("inf")
                     print(f"\r{done}/{total} camera rays | {rate / 1e6:.2f} M rays/s | "
                           f"ETA {eta:.0f}s   ", end="", flush=True)
+            graphed = all(t.graphed for t in traces.values())
+            stats["graphed"] = stats.get("graphed", True) and graphed
         finally:
             for t in traces.values():   # the graphs and their pools
                 t.close()

@@ -575,41 +575,63 @@ class Scene:
         maxs = np.maximum(np.maximum(self.tri_v0, v1), v2)
         return mins, maxs
 
-    def build_cluster_bvh(self, dtype=np.float32, device=None):
-        """Fat-leaf cluster BVH for the traversal kernel (see ops/cluster_bvh).
-        Cached per (dtype, device). None when the scene has no `bvh` block or
-        too few triangles to matter.
+    def build_flat_bvh(self, dtype=np.float32):
+        """The fat-leaf flat BVH that both cluster builders read, cached per
+        dtype. None when the scene has no `bvh` block or too few triangles to
+        matter.
 
         The fat-leaf size is the JAX package's (128, doubled up to 512 while the
         mesh has more than 5000 clusters), so both packages traverse the same
         clusters. The CUDA kernel itself takes any cluster count."""
         if self.bvh_config is None or self.n_tris < 8:
             return None
-        from ..utils.device import resolve_device
-
-        device = resolve_device(device)
-        cluster_size = 128
-        while cluster_size < 512 and self.n_tris / cluster_size > 5000:
-            cluster_size *= 2
-        key = (np.dtype(dtype).name, str(device))
-        cache = getattr(self, "_cluster_cache", None)
-        if cache is None:
-            cache = self._cluster_cache = {}
+        cache = self.__dict__.setdefault("_flat_cache", {})
+        key = np.dtype(dtype).name
         if key not in cache:
             from ..accel.bvh_build import build_bvh
-            from ..ops.cluster_bvh import upload_cluster_bvh
 
+            cluster_size = 128
+            while cluster_size < 512 and self.n_tris / cluster_size > 5000:
+                cluster_size *= 2
             # Honor the scene's builder choice (reference bvh.cpp:24-56): the JSON
             # `bvh.type` selects the cluster-formation algorithm.
             kind = str(self.bvh_config.get("type", "binary_sah"))
             bins = int(self.bvh_config.get("bins_per_axis", 16))
             mins, maxs = self.tri_bounds()
-            flat = build_bvh(
+            cache[key] = build_bvh(
                 mins, maxs, kind=kind, bins=bins,
                 max_leaf=cluster_size, dtype=dtype, strict_leaf=True,
             )
-            cache[key] = upload_cluster_bvh(flat, self, dtype, device)
         return cache[key]
+
+    def _cluster_cached(self, name, builder, dtype, device):
+        from ..utils.device import resolve_device
+
+        flat = self.build_flat_bvh(dtype)
+        if flat is None:
+            return None
+        device = resolve_device(device)
+        cache = self.__dict__.setdefault(name, {})
+        key = (np.dtype(dtype).name, str(device))
+        if key not in cache:
+            cache[key] = builder(flat, self, dtype, device)
+        return cache[key]
+
+    def build_cluster_bvh(self, dtype=np.float32, device=None):
+        """Fat-leaf cluster BVH for the traversal kernel (see ops/cluster_bvh),
+        from build_flat_bvh. Cached per (dtype, device); None without a BVH."""
+        from ..ops.cluster_bvh import upload_cluster_bvh
+
+        return self._cluster_cached("_cluster_cache", upload_cluster_bvh, dtype, device)
+
+    def build_cluster_tree(self, dtype=np.float32, device=None):
+        """The JAX package's cluster tree and dense cluster tables over the same
+        flat BVH as build_cluster_bvh, for the walk and best-first traversals
+        (ops/cluster_bvh.ClusterTree). Built on request, cached per (dtype,
+        device); None without a BVH."""
+        from ..ops.cluster_bvh import upload_cluster_tree
+
+        return self._cluster_cached("_tree_cache", upload_cluster_tree, dtype, device)
 
     def meta(self) -> SceneMeta:
         return SceneMeta(

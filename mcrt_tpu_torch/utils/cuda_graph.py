@@ -9,6 +9,11 @@ of the whole step in place of one launch per op.
 the second captured, every later one replayed, across every start loaded
 into the same buffers, until the loop's stop rule (`running`) says so.
 
+A step that reads a condition of its data on the host (the walk and
+best-first traversals, ops/cluster_bvh.py) cannot be captured: its builder
+sets `step.capturable = False`, and the loops then call it eagerly on the
+card, one launch per op, as on the CPU. `graphed` tells the two apart.
+
 A kernel wrapper counts its launches with a `LaunchCounter`. While the current
 stream is being captured, a launch only records the kernel into the graph and
 runs nothing: it goes to `captured`, not to `launches`. Each
@@ -45,6 +50,12 @@ class LaunchCounter:
             self.captured += 1
         else:
             self.launches += 1
+
+
+def captures(device) -> bool:
+    """Whether loops on `device` capture their steps as CUDA graphs: on the
+    card they do (a step that is not capturable still runs eagerly)."""
+    return device.type == "cuda"
 
 
 def copy_into(dst, src):
@@ -105,19 +116,25 @@ class GraphedLoop:
     allocator, none of which may first happen under capture) and leaves its
     result in the buffers; the second captures the step over them
     (CapturedStep); every later advance, of this load and of later ones, is
-    one replay. A capture that fails raises. On the CPU every advance calls
-    the step. drain() advances while `running(state)`, a device boolean read
-    once a step: any lane alive, unless a subclass gives its loop's own rule.
-    close() releases the graph and its pool with the buffers."""
+    one replay. A capture that fails raises. On the CPU, and on the card for
+    a step whose `capturable` is False, every advance calls the step on the
+    loaded state and nothing is captured; `graphed` says which route the
+    last load took. drain() advances while `running(state)`, a device
+    boolean read once a step: any lane alive, unless a subclass gives its
+    loop's own rule. close() releases the graph and its pool with the
+    buffers."""
 
     def __init__(self, step):
         self.step = step
+        self.capturable = getattr(step, "capturable", True)
+        self.graphed = False       # the loop's last load runs the graphed route
         self.state = None
         self.graph = None          # the CapturedStep, once captured
         self._warm = False         # the first step ran eagerly
 
     def load(self, init):
-        if init[0].device.type != "cuda":
+        self.graphed = self.capturable and captures(init[0].device)
+        if not self.graphed:
             self.state = init
         elif self.state is None:
             self.state = type(init)(*(x.clone() for x in init))
@@ -125,7 +142,7 @@ class GraphedLoop:
             copy_into(self.state, init)
 
     def advance(self):
-        if self.state[0].device.type != "cuda":
+        if not self.graphed:
             self.state = self.step(self.state)
         elif self.graph is not None:
             self.graph.replay()
@@ -210,8 +227,9 @@ class GraphedTrip:
     (on the card on a side stream), its values that trip's outputs, and a
     backward of it against zero cotangents: that builds the kernels and
     settles the allocator. Then, on the card, G_f and G_b are captured in one
-    memory pool; a capture that fails raises. On the CPU nothing is captured:
-    the two bodies run where the replays would. `pool_bytes` is what the
+    memory pool; a capture that fails raises. On the CPU, and for a step
+    whose `capturable` is False, nothing is captured: the two bodies run
+    where the replays would (`cuda` is False). `pool_bytes` is what the
     captures reserved; `per_replay` is [(counter, launches a replay runs)]
     for G_f and for G_b. `step_calls` counts the Python step's calls: one
     eagerly and one in each capture on the card, and none after."""
@@ -226,7 +244,8 @@ class GraphedTrip:
         self.make = type(state)
         self.state = self.make(*(x.detach().clone() for x in state))
         self.float_in = [i for i, x in enumerate(state) if x.is_floating_point()]
-        self.cuda = self.state[0].device.type == "cuda"
+        # A step that is not capturable runs its bodies as on the CPU.
+        self.cuda = captures(self.state[0].device) and getattr(step, "capturable", True)
         self.loaded = None
         self.diff_out = self.gout = self.out = self.gin = None
         self.graphs = ()

@@ -147,15 +147,28 @@ def test_knn_wrapper_takes_cpu_tensors_to_the_plain_version():
 
 
 def test_exact_knn_refuses_float64_on_the_card(monkeypatch):
-    """float64 exact queries on a CUDA tensor raise (the kernel is float32);
-    checked with a stand-in tensor that reports a CUDA device."""
+    """The k-NN kernels refuse float64 exact queries (they are float32): a
+    float64 query on a CUDA tensor takes the capped search and the brute
+    force, the JAX package's non-Pallas exact route, and neither raises nor
+    reaches the kernels' wrapper; checked with a stand-in tensor that
+    reports a CUDA device, stopped where the capped search begins."""
     p = np.random.RandomState(2).rand(100, 3)
     grid = pg.build_photon_grid(p, p, p, 8, np.float64, device="cpu")
+    assert not pg._knn_kernel_ok(grid, torch.float64, 8) and pg._knn_kernel_ok(grid, torch.float32, 8)
 
     class CudaLike:
         device = torch.device("cuda", 0)
         dtype = torch.float64
         shape = (4, 3)
 
-    with pytest.raises(ValueError, match="float32"):
+    class Capped(Exception):
+        pass
+
+    def capped(g, arrays, points, k):
+        assert isinstance(points, CudaLike) and k == 8
+        raise Capped
+
+    monkeypatch.setattr(pg.knn_kernel, "knn", lambda *a, **kw: pytest.fail("the kernels took it"))
+    monkeypatch.setattr(pg, "_knn_capped", capped)
+    with pytest.raises(Capped):
         pg.knn(grid, grid.arrays, CudaLike(), 8, exact=True)

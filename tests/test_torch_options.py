@@ -4,9 +4,8 @@ against the JAX package's `PTConfig(collect_traversal_stats=True)` and
 
 The port always sums the primary intersect's Hit.steps and `trace` returns
 them as "traversal_steps" when the intersect reported any; it has no switch
-for them, and none for the ray order: its intersect always sorts, and the
-lane-order route is reached here by making `coherence_key` the lane index,
-so that the stable sort keeps the lanes in order.
+for them. The ray order is make_intersect_fn's `sort_rays`, as in the JAX
+package.
 
 float64 scene tables on the CPU (the traversal statistics over float32
 cluster tables, which the Pallas kernel takes; the unsorted hits in float32
@@ -140,15 +139,10 @@ def test_traversal_steps_absent_without_counts(differentiable):
 # (c) the intersect in lane order
 # ---------------------------------------------------------------------------------
 
-def _lane_order(origin, direction, bb_lo, bb_hi):
-    return torch.arange(origin.shape[0], device=origin.device)
-
-
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_unsorted_hits_match_jax(dtype, monkeypatch):
-    """The port's make_intersect_fn with coherence_key patched to the lane
-    index (rays traversed in lane order) against the JAX package's with
-    sort_rays=False, on 1024 rays in a shuffled order (half camera rays, half
+def test_unsorted_hits_match_jax(dtype):
+    """The port's make_intersect_fn with sort_rays=False (rays traversed in
+    lane order) against the JAX package's with sort_rays=False, on 1024 rays in a shuffled order (half camera rays, half
     leaving points above the field in random directions): ids identical, t and
     uv at the unsorted-hits bar, and the same hits as the port's sorted
     intersect, on the 63-cluster height field. The lane-order blocks cull
@@ -171,8 +165,8 @@ def test_unsorted_hits_match_jax(dtype, monkeypatch):
     o, d = o[mix], d[mix]
     want = jcb.make_intersect_fn(jt, js.meta(), jb, sort_rays=False)(jnp.asarray(o), jnp.asarray(d))
     sorted_ = tcb.make_intersect_fn(tt, ts.meta(), tb)(torch.as_tensor(o), torch.as_tensor(d))
-    monkeypatch.setattr(tcb, "coherence_key", _lane_order)
-    got = tcb.make_intersect_fn(tt, ts.meta(), tb)(torch.as_tensor(o), torch.as_tensor(d))
+    got = tcb.make_intersect_fn(tt, ts.meta(), tb, sort_rays=False)(torch.as_tensor(o),
+                                                                      torch.as_tensor(d))
     np.testing.assert_array_equal(got.surf_id.numpy(), np.asarray(want.surf_id))
     hit = np.asarray(want.surf_id) >= 0
     assert hit.sum() > n // 4
