@@ -38,6 +38,7 @@ from ..ops import intersect as isect
 from ..sampling import sobol
 from ..scene.loader import SceneMeta, SceneTables
 from ..utils import cuda_graph
+from ..utils.trace import span
 from . import common
 from .common import PARK_DIRECTION, PARK_DISTANCE
 
@@ -563,10 +564,11 @@ class BatchTrace(cuda_graph.GraphedLoop):
         return state.alive.any() & (state.bounce.min() < self.max_bounces)
 
     def __call__(self, step, state: PathState):
-        with torch.no_grad():
-            for s, t in zip(self.leaves, cuda_graph._distinct_tensors(step.leaves)[0]):
-                s.copy_(t)
-        self.load(state)
+        with span("loop.load"):
+            with torch.no_grad():
+                for s, t in zip(self.leaves, cuda_graph._distinct_tensors(step.leaves)[0]):
+                    s.copy_(t)
+            self.load(state)
         steps = self.drain()
         st = self.state
         # `counted` is set by the step's Python, which on the card runs only
@@ -656,7 +658,8 @@ class StreamedTrace(cuda_graph.GraphedLoop):
     def begin(self, start: int):
         """Load the chunk whose first path is `start` (on the card, into the
         static buffers, which the first chunk allocates)."""
-        self.load(self.initial(start))
+        with span("loop.load"):
+            self.load(self.initial(start))
 
     def __call__(self, start: int, stats: dict | None = None):
         self.begin(start)

@@ -46,6 +46,7 @@ from ..ops import intersect as isect
 from ..sampling import sobol
 from ..scene.loader import SceneMeta, SceneTables
 from ..utils import cuda_graph
+from ..utils.trace import span
 from . import common
 from .common import PARK_DIRECTION, PARK_DISTANCE
 from .path_tracer import _sample_light_position, ray_offset_eps
@@ -301,7 +302,8 @@ class _EmissionRun(cuda_graph.GraphedLoop):
         )
 
     def __call__(self, light_idx, emission_idx, stats: dict):
-        self.load(self.initial(light_idx, emission_idx))
+        with span("loop.load"):
+            self.load(self.initial(light_idx, emission_idx))
         stats["emission_steps"] = stats.get("emission_steps", 0) + self.drain()
         return int(self.state.c_cnt), int(self.state.g_cnt)
 
@@ -322,7 +324,8 @@ def emit_photons(
     stores more into either is run again through a run with buffers of its
     counted size, which serves the later chunks. With a `stats` dict,
     "emission_steps" and "emission_reruns" are added to it, and "graphed"
-    is False unless every chunk replayed a captured step."""
+    is False unless every chunk replayed a captured step. Each chunk's copy
+    of its stores to the host is the span `pm.emit.copy` (utils/trace)."""
     stats = {} if stats is None else stats
     dtype = tables.tri_v0.dtype
     dev = tables.tri_v0.device
@@ -358,8 +361,9 @@ def emit_photons(
                 c_n, g_n = run(*chunk, stats)
             stats["graphed"] = stats.get("graphed", True) and run.graphed
             # Copied to the host before the next chunk reuses the buffers.
-            out["caustic"].append(run.state.c_buf[:c_n].cpu().numpy())
-            out["global"].append(run.state.g_buf[:g_n].cpu().numpy())
+            with span("pm.emit.copy"):
+                out["caustic"].append(run.state.c_buf[:c_n].cpu().numpy())
+                out["global"].append(run.state.g_buf[:g_n].cpu().numpy())
             done += n
             if verbose:
                 print(f"\rphotons emitted: {done}/{E}", end="", flush=True)
@@ -377,16 +381,18 @@ def emit_photons(
 
 def build_photon_maps(tables, meta, cfg: PMConfig, scene_np, intersect_fn=None,
                       verbose=False, stats: dict | None = None) -> PhotonMaps:
-    """Both photon maps as grids on the tables' device."""
-    (cp, cd, cf), (gp, gd, gf) = emit_photons(
-        tables, meta, cfg, scene_np, intersect_fn, verbose, stats)
+    """Both photon maps as grids on the tables' device: the emission is the
+    span `pm.emit`, each grid's host build and upload the span `pm.grid`."""
+    with span("pm.emit"):
+        emitted = emit_photons(tables, meta, cfg, scene_np, intersect_fn, verbose, stats)
     dtype = tables.tri_v0.dtype
     dev = tables.tri_v0.device
-    k = cfg.k_nearest_photons
-    return PhotonMaps(
-        caustic=pgrid.build_photon_grid(cp, cd, cf, k, dtype, device=dev),
-        global_=pgrid.build_photon_grid(gp, gd, gf, k, dtype, device=dev),
-    )
+    grids = []
+    for pos, direction, flux in emitted:   # caustic, then global
+        with span("pm.grid"):
+            grids.append(pgrid.build_photon_grid(pos, direction, flux, cfg.k_nearest_photons,
+                                                 dtype, device=dev))
+    return PhotonMaps(*grids)
 
 
 # ----------------------------------------------------------------------------------
@@ -724,12 +730,13 @@ class BatchEyePass(cuda_graph.GraphedLoop):
     def __call__(self, origin, direction, pixel_index, sample_index, stats: dict | None = None):
         R = origin.shape[0]
         dev = origin.device
-        self.load(_init_eye(
-            self.tables, self.cfg, origin, direction, sobol.as_u32(pixel_index, dev),
-            sobol.as_u32(sample_index, dev), torch.ones((R,), dtype=torch.bool, device=dev),
-            torch.arange(R, dtype=torch.int32, device=dev),
-            torch.full((), R, dtype=torch.int64, device=dev),
-            torch.zeros((1, 3), dtype=origin.dtype, device=dev), 0))
+        with span("loop.load"):
+            self.load(_init_eye(
+                self.tables, self.cfg, origin, direction, sobol.as_u32(pixel_index, dev),
+                sobol.as_u32(sample_index, dev), torch.ones((R,), dtype=torch.bool, device=dev),
+                torch.arange(R, dtype=torch.int32, device=dev),
+                torch.full((), R, dtype=torch.int64, device=dev),
+                torch.zeros((1, 3), dtype=origin.dtype, device=dev), 0))
         steps = self.drain()
         _add_stats(stats, self.maps, steps, self.state.knn)
         return self.state.radiance.clone()
@@ -792,7 +799,8 @@ class StreamedEyePass(cuda_graph.GraphedLoop):
     def begin(self, start: int):
         """Load the chunk whose first path is `start` (on the card, into the
         static buffers, which the first chunk allocates)."""
-        self.load(self.initial(start))
+        with span("loop.load"):
+            self.load(self.initial(start))
 
     def __call__(self, start: int, stats: dict | None = None):
         self.begin(start)

@@ -41,6 +41,7 @@ from .integrator import path_tracer as pt
 from .integrator import photon_mapper as pm
 from .ops import cluster_bvh
 from .scene.loader import Scene
+from .utils import trace
 from .utils.device import resolve_device, torch_dtype
 
 
@@ -52,7 +53,7 @@ class RenderConfig:
     rays_per_chunk: int = 1 << 17     # paths per chunk
     sqrtspp: int | None = None        # override scene camera spp
     integrator: str = "path_tracer"   # or "photon_mapper"
-    profile_dir: str | None = None    # write a torch.profiler trace of the chunk loop there
+    profile_dir: str | None = None    # write a torch.profiler trace of the render there
     # Persistent-wavefront streaming: a chunk's paths stream through `lanes`
     # lanes; a lane whose path dies immediately loads the next one.
     streamed: bool = True
@@ -183,10 +184,10 @@ def _photon_maps(scene, tables, meta, pmcfg, cam, cfg, intersect_fn, checkpoint_
                 return maps
             except (OSError, ValueError, KeyError, zipfile.BadZipFile):
                 pass  # corrupt or foreign checkpoint: rebuild
-    t0 = time.perf_counter()
-    maps = pm.build_photon_maps(tables, meta, pmcfg, scene, intersect_fn, verbose=verbose,
-                                stats=stats)
-    stats["photon_pass_s"] = time.perf_counter() - t0
+    with trace.span("pm.photon_pass") as span:
+        maps = pm.build_photon_maps(tables, meta, pmcfg, scene, intersect_fn, verbose=verbose,
+                                    stats=stats)
+    stats["photon_pass_s"] = span.seconds   # None when not recording: stats is render's own
     if paths is not None:
         pgrid.save_photon_grid(paths[0], maps.caustic)
         pgrid.save_photon_grid(paths[1], maps.global_)
@@ -197,7 +198,8 @@ def _photon_maps(scene, tables, meta, pmcfg, cam, cfg, intersect_fn, checkpoint_
 def _profiler(profile_dir, device):
     """torch.profiler over the body when profile_dir is set (CPU activity, plus
     the card's kernels on CUDA), writing a TensorBoard trace file
-    (<host>_<pid>.<ns>.pt.trace.json) into profile_dir; nothing otherwise."""
+    (<host>_<pid>.<ns>.pt.trace.json) into profile_dir; nothing otherwise.
+    The spans of utils/trace land in it as CPU ops."""
     if profile_dir is None:
         yield
         return
@@ -237,28 +239,50 @@ def render(
     runs every step eagerly; the photon pass's loop included); the path
     tracer adds "rays" (a device count),
     the photon mapper
-    "photons_caustic", "photons_global", "photon_pass_s", "emission_steps"
-    and the k-NN counts of photon_grid.knn.
+    "photons_caustic", "photons_global", "photon_pass_s" (the span
+    `pm.photon_pass`), "emission_steps" and the k-NN counts of
+    photon_grid.knn. The render also records into it (utils/trace):
+    "spans", {name: [count, seconds, self seconds]} of the spans `render`,
+    `render.tables`, `render.bvh`, `render.chunk`, `render.finish`, the
+    photon mapper's `pm.photon_pass`, `pm.emit`, `pm.emit.copy` and
+    `pm.grid`, and the loops' `loop.load`, `loop.drain`, `loop.warm` and
+    `loop.capture`; and the loops' counters (utils/cuda_graph): "loop_steps"
+    (every loop's steps: "bounce_steps" plus, for the photon mapper,
+    "emission_steps"), "loop_sync_wait_s" (host seconds blocked on the
+    steps' syncs and before the captures) and, on the card,
+    "graph_pool_bytes" (what the captures' pools reserved, summed). Like
+    the other keys they add to what the dict holds. With stats None nothing
+    is recorded and no span reads a clock.
     verbose: print the photon emission and a per-chunk progress line.
+    cfg.profile_dir: write a torch.profiler trace of the whole render there,
+    set-up, photon pass and spans included.
     """
     if cfg.integrator not in ("path_tracer", "photon_mapper"):
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
     device = resolve_device(device)
+    with _profiler(cfg.profile_dir, device), trace.recording(stats), trace.span("render"):
+        return _render(scene, camera_idx, cfg, device, checkpoint_dir, checkpoint_every_s,
+                       {} if stats is None else stats, verbose)
+
+
+def _render(scene, camera_idx, cfg, device, checkpoint_dir, checkpoint_every_s, stats, verbose):
+    """render()'s body, on a resolved device and into a stats dict."""
     traces = {}   # the chunk loop's run (StreamedTrace, StreamedEyePass, BatchTrace or
                   # BatchEyePass) per chunk size
     dtype = torch_dtype(cfg.dtype)
-    stats = {} if stats is None else stats
     stats.pop("graphed", None)   # this render's: the photon pass's and the chunk loop's
     cam = scene.cameras[camera_idx]
     sqrtspp = cfg.sqrtspp if cfg.sqrtspp is not None else cam.sqrtspp
     spp = sqrtspp * sqrtspp
 
-    tables = scene.tables(dtype, device)
+    with trace.span("render.tables"):
+        tables = scene.tables(dtype, device)
     meta = scene.meta()
     film_cfg = film_mod.FilmConfig.from_json(cam.width, cam.height, cam.film)
-    cbvh = build_device_bvh(scene, tables, cfg.dtype, device)
-    intersect_fn = None if cbvh is None else cluster_bvh.make_intersect_fn(
-        tables, meta, cbvh, tree=build_device_tree(scene, cbvh, device))
+    with trace.span("render.bvh"):
+        cbvh = build_device_bvh(scene, tables, cfg.dtype, device)
+        intersect_fn = None if cbvh is None else cluster_bvh.make_intersect_fn(
+            tables, meta, cbvh, tree=build_device_tree(scene, cbvh, device))
 
     if cfg.integrator == "photon_mapper":
         pmcfg = pm.PMConfig.from_json(scene.photon_map_config, max_eye_bounces=cfg.max_bounces,
@@ -321,37 +345,38 @@ def render(
     # average of camera rays/s over the last 32 chunks, and the ETA.
     recent = [(last_ckpt, done)]
     stats["chunks"] = 0
-    with _profiler(cfg.profile_dir, device):
-        try:
-            while done < total:
-                n = min(chunk, total - done)
+    try:
+        while done < total:
+            n = min(chunk, total - done)
+            with trace.span("render.chunk"):
                 film_acc = run_chunk(done, n, film_acc)
-                done += n
-                stats["chunks"] += 1
-                if ckpt_path is not None and time.monotonic() - last_ckpt > checkpoint_every_s:
-                    save_ckpt()
-                    last_ckpt = time.monotonic()
-                if verbose:
-                    if film_acc.is_cuda:
-                        torch.cuda.synchronize(film_acc.device)
-                    now = time.monotonic()
-                    recent = (recent + [(now, done)])[-32:]
-                    dt = now - recent[0][0]
-                    rate = (done - recent[0][1]) / dt if dt > 0 else 0.0
-                    eta = (total - done) / rate if rate > 0 else float("inf")
-                    print(f"\r{done}/{total} camera rays | {rate / 1e6:.2f} M rays/s | "
-                          f"ETA {eta:.0f}s   ", end="", flush=True)
-            graphed = all(t.graphed for t in traces.values())
-            stats["graphed"] = stats.get("graphed", True) and graphed
-        finally:
-            for t in traces.values():   # the graphs and their pools
-                t.close()
+            done += n
+            stats["chunks"] += 1
+            if ckpt_path is not None and time.monotonic() - last_ckpt > checkpoint_every_s:
+                save_ckpt()
+                last_ckpt = time.monotonic()
+            if verbose:
+                if film_acc.is_cuda:
+                    torch.cuda.synchronize(film_acc.device)
+                now = time.monotonic()
+                recent = (recent + [(now, done)])[-32:]
+                dt = now - recent[0][0]
+                rate = (done - recent[0][1]) / dt if dt > 0 else 0.0
+                eta = (total - done) / rate if rate > 0 else float("inf")
+                print(f"\r{done}/{total} camera rays | {rate / 1e6:.2f} M rays/s | "
+                      f"ETA {eta:.0f}s   ", end="", flush=True)
+        graphed = all(t.graphed for t in traces.values())
+        stats["graphed"] = stats.get("graphed", True) and graphed
+    finally:
+        for t in traces.values():   # the graphs and their pools
+            t.close()
     if verbose:
         print()
     save_ckpt()
 
-    img = film_mod.scan(film_acc)
-    return img.cpu().numpy().astype(np.float64)
+    with trace.span("render.finish"):
+        img = film_mod.scan(film_acc)
+        return img.cpu().numpy().astype(np.float64)
 
 
 def render_to_file(scene: Scene, out_path, camera_idx: int = 0, cfg: RenderConfig = RenderConfig(),

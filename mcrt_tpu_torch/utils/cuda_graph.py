@@ -24,11 +24,23 @@ The differentiable loops' counterpart (`lax.scan` over `jax.checkpoint`) is
 `GraphedTrip`: one trip as two graphs, the trip and its recompute plus
 backward, replayed by an autograd Function for every trip of every call of
 the same shapes.
+
+Under a recording (utils/trace) the loops add spans and counters to the
+render's `stats`: the spans `loop.drain`, `loop.warm` (the eager first step
+on the card) and `loop.capture` (a CapturedStep's or a GraphedTrip's
+captures); the counters `loop_steps`, `loop_sync_wait_s` (host seconds
+blocked on the device: on `running` a step, and on the work queued before
+each capture, which so stays out of `loop.capture`) and `graph_pool_bytes`
+(the `pool_bytes` the captures reserved, summed when they are reserved).
+`loop.load` is the callers' span around `load` and the `initial()` that they
+build its start with.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from . import trace
 
 # Every LaunchCounter made: one per kernel wrapper, made when its module is imported.
 _COUNTERS: list[LaunchCounter] = []
@@ -66,6 +78,15 @@ def copy_into(dst, src):
             d.copy_(s)
 
 
+def wait_for_device(dev):
+    """Wait for the work queued on `dev` before a capture, counted in
+    `loop_sync_wait_s` with the steps' waits (the queued work is the eager
+    first step's and the load's, not the capture's)."""
+    t0 = trace.now()
+    torch.cuda.synchronize(dev)
+    trace.count("loop_sync_wait_s", (trace.now() - t0) * 1e-9)
+
+
 class CapturedStep:
     """`fn(state) -> state` captured once as a CUDA graph over `state`.
 
@@ -79,19 +100,24 @@ class CapturedStep:
     `pool_bytes` is what the graph's private memory pool reserved: one step's
     temporaries. `per_replay` is [(counter, launches a replay runs)]. `close()`
     releases the graph and, once no tensor of the pool is referenced, the pool.
+    The capture is the span `loop.capture`, after the wait for the queued
+    work (`wait_for_device`), and counts its `graph_pool_bytes`.
     """
 
     def __init__(self, fn, state):
         dev = state[0].device
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        before = [c.captured for c in _COUNTERS]
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            copy_into(state, fn(state))
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.per_replay = [(c, c.captured - n) for c, n in zip(_COUNTERS, before) if c.captured > n]
+        wait_for_device(dev)
+        with trace.span("loop.capture"):
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            before = [c.captured for c in _COUNTERS]
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                copy_into(state, fn(state))
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            self.per_replay = [(c, c.captured - n) for c, n in zip(_COUNTERS, before)
+                               if c.captured > n]
+        trace.count("graph_pool_bytes", self.pool_bytes)
 
     def replay(self):
         self.graph.replay()
@@ -122,7 +148,10 @@ class GraphedLoop:
     last load took. drain() advances while `running(state)`, a device
     boolean read once a step: any lane alive, unless a subclass gives its
     loop's own rule. close() releases the graph and its pool with the
-    buffers."""
+    buffers. drain() is the span `loop.drain`, the eager first step
+    `loop.warm` inside it; drain counts `loop_steps` and
+    `loop_sync_wait_s`, the host's wait on each step's `running` and
+    before the capture."""
 
     def __init__(self, step):
         self.step = step
@@ -147,7 +176,8 @@ class GraphedLoop:
         elif self.graph is not None:
             self.graph.replay()
         elif not self._warm:
-            copy_into(self.state, self.step(self.state))
+            with trace.span("loop.warm"):
+                copy_into(self.state, self.step(self.state))
             self._warm = True
         else:
             self.graph = CapturedStep(self.step, self.state)
@@ -160,10 +190,19 @@ class GraphedLoop:
     def drain(self) -> int:
         """advance() while `running`, one host sync a step; returns the steps
         run."""
-        steps = 0
-        while bool(self.running(self.state)):
-            self.advance()
-            steps += 1
+        steps = wait_ns = 0
+        with trace.span("loop.drain"):
+            while True:
+                go = self.running(self.state)
+                t0 = trace.now()
+                go = bool(go)
+                wait_ns += trace.now() - t0
+                if not go:
+                    break
+                self.advance()
+                steps += 1
+        trace.count("loop_steps", steps)
+        trace.count("loop_sync_wait_s", wait_ns * 1e-9)
         return steps
 
     def close(self):
@@ -232,7 +271,9 @@ class GraphedTrip:
     where the replays would (`cuda` is False). `pool_bytes` is what the
     captures reserved; `per_replay` is [(counter, launches a replay runs)]
     for G_f and for G_b. `step_calls` counts the Python step's calls: one
-    eagerly and one in each capture on the card, and none after."""
+    eagerly and one in each capture on the card, and none after. The two
+    captures are one span `loop.capture`, after the wait for the queued work
+    (`wait_for_device`), and count their `graph_pool_bytes`."""
 
     def __init__(self, step, state):
         tensors, self.pattern, self.spec = _distinct_tensors(step.leaves)
@@ -317,22 +358,24 @@ class GraphedTrip:
 
     def _capture(self):
         dev = self.state[0].device
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        pool = torch.cuda.graph_pool_handle()
-        g_f, g_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-        counts = [c.captured for c in _COUNTERS]
-        with torch.cuda.graph(g_f, pool=pool):
-            self.out = self._forward_body()
-        mid = [c.captured for c in _COUNTERS]
-        with torch.cuda.graph(g_b, pool=pool):
-            self.gin = self._backward_body()
-        self.graphs = (g_f, g_b)
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.per_replay = tuple(
-            [(c, b - a) for c, a, b in zip(_COUNTERS, lo, hi) if b > a]
-            for lo, hi in ((counts, mid), (mid, [c.captured for c in _COUNTERS])))
+        wait_for_device(dev)
+        with trace.span("loop.capture"):
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            pool = torch.cuda.graph_pool_handle()
+            g_f, g_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+            counts = [c.captured for c in _COUNTERS]
+            with torch.cuda.graph(g_f, pool=pool):
+                self.out = self._forward_body()
+            mid = [c.captured for c in _COUNTERS]
+            with torch.cuda.graph(g_b, pool=pool):
+                self.gin = self._backward_body()
+            self.graphs = (g_f, g_b)
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            self.per_replay = tuple(
+                [(c, b - a) for c, a, b in zip(_COUNTERS, lo, hi) if b > a]
+                for lo, hi in ((counts, mid), (mid, [c.captured for c in _COUNTERS])))
+        trace.count("graph_pool_bytes", self.pool_bytes)
 
     def _replay(self, which):
         self.graphs[which].replay()
