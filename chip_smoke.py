@@ -13,13 +13,17 @@ Phases (each prints its own lines; any failed check exits non-zero):
               and spill lines
   3. kernel   the traversal kernel against its plain PyTorch version on the card, on camera
               rays, random rays from surface points, shadow rays, a parked block
-              and mixed live/dead blocks: ids, t, u, v and per-block stats
-              identical bit for bit, parked block zero rounds; then, per set at
-              the main path's launch shape, kernel and plain timed (and the
-              parent's kernel in turns with this one: old, new, new, old), the
-              candidates and rounds per block, the share of SMs that hold a
-              block, the bound counted from the clusters each block visits, and
-              the split of a launch's clock64() cycles per block
+              and mixed live/dead blocks, one CTA a block and as two-CTA
+              clusters: ids, t, u, v and per-block stats identical bit for bit,
+              parked block zero rounds; then, per set at the main path's launch
+              shape (paired by the rule), kernel and plain timed (and the
+              parent's kernel in turns with this one: old, new, new, old; and
+              this one forced to one CTA a block), the candidates and rounds per
+              block, the share of SMs that hold a CTA, the bound counted from the
+              clusters each block visits, and the split of a launch's clock64()
+              cycles per CTA (a pair's leaders and peers apart); then the
+              camera and surface rays at LARGE_LAUNCH rays, one CTA a block by
+              the rule, in turns with the parent's kernel
   4. render   mcrt_tpu_torch.render of the height-field scene at 512x512, 16 spp,
               max_bounces 64, default RenderConfig, with the kernel's launch count
               reset before and read after: the bounce step captured once as a
@@ -256,6 +260,8 @@ GRID_N = 708
 WIDTH = 512
 SQRTSPP = 4
 CHECK_RAYS = 1 << 16
+# Phase 3's launch of the batch renders' size, which stays one CTA a block.
+LARGE_LAUNCH = 1 << 17
 # The photon render: the photon_map block of tests/scenes/caustic_sphere.json on
 # the same height field (its glass sphere sits under the light), at 512x512 and
 # 2^2 = 4 spp; the k-NN kernel is checked and timed on 2^14 queries (one eye-pass
@@ -312,13 +318,13 @@ KNN64_QUERIES = 1 << 12
 ROOT = pathlib.Path(__file__).resolve().parent
 # The parent commit's traverse.cu, when one is handed in beside the checkout (it
 # is not part of the repo): phase 3 then times it in turns with this tree's
-# kernel, and takes its cycle split if it has a stamping entry point.
+# kernel, and takes its cycle split. Its C entry is the one before the launch
+# width was added: mcrt_traverse(13 pointers, B, K, C, Sp, stream).
 OLD_TRAVERSE = ROOT / "chip_old" / "traverse.cu"
 # The parent commit's knn.cu (the one-ring kernel whose flagged queries went to
 # the brute force), handed in the same way: phase 7 then times it, with
 # _knn_brute on the rows it flags, in turns with this tree's kernels.
 OLD_KNN = ROOT / "chip_old" / "knn.cu"
-PARENT_CYCLES = ("total", "cull", "select", "staging", "forms")
 
 
 def log(phase: str, msg: str):
@@ -381,21 +387,19 @@ def surface_rays(scene, n, rng, toward=None):
 
 
 def load_parent_kernel(path):
-    """The parent's traversal kernel, built from `path` by nvcc like this tree's:
-    its C entry mcrt_traverse(11 pointers, B, K, C, Sp, stream) and, where it
-    has one, mcrt_traverse_cycles(the same, then a (B, 5) int64 array of
-    PARENT_CYCLES). None when the file is absent."""
+    """The parent's traversal kernel, built from `path` by nvcc like this tree's,
+    with the parent's C entry mcrt_traverse(13 pointers, B, K, C, Sp, stream):
+    one CTA a block, and the cycles of tk.CYCLES per block through its 13th
+    pointer. None when the file is absent."""
     from mcrt_tpu_torch.ops import traverse_kernel as tk
 
     if not path.exists():
         return None
     lib = ctypes.CDLL(str(tk.compile_source(path, "traverse_parent")[0]))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.mcrt_traverse.argtypes = [vp] * 11 + [ci] * 4 + [vp]
+    lib.mcrt_traverse.argtypes = [vp] * 13 + [ci] * 4 + [vp]
     lib.mcrt_traverse.restype = ci
-    if hasattr(lib, "mcrt_traverse_cycles"):
-        lib.mcrt_traverse_cycles.argtypes = [vp] * 11 + [ci] * 4 + [vp, vp]
-        lib.mcrt_traverse_cycles.restype = ci
+    lib.mcrt_traverse_heap_shared.restype = ci
     return lib
 
 
@@ -411,18 +415,22 @@ def parent_traverse(lib, cbvh, o, d, cycles=False):
     C, Sp, _ = cbvh.rec.shape
     new = lambda shape, dt: torch.empty(shape, dtype=dt, device=o.device)
     f32, i32 = torch.float32, torch.int32
-    outs = [new((B, C, K), f32), new((B, C), i32), new((B, K), f32), new((B, K), i32),
-            new((B, K), f32), new((B, K), f32), new((B, 2), i32)]
-    args = [ft.data_ptr(), cbvh.cl_bb.data_ptr(), cbvh.rec.data_ptr(), cbvh.tri.data_ptr(),
-            *(x.data_ptr() for x in outs), B, K, C, Sp, torch.cuda.current_stream().cuda_stream]
-    cy = torch.zeros((B, len(PARENT_CYCLES)), dtype=torch.int64, device=o.device) if cycles else None
-    err = lib.mcrt_traverse_cycles(*args, cy.data_ptr()) if cycles else lib.mcrt_traverse(*args)
+    heap = new((B, C), torch.int64) if C > lib.mcrt_traverse_heap_shared() else None
+    outs = [new((B, K), f32), new((B, K), i32), new((B, K), f32), new((B, K), f32),
+            new((B, 2), i32)]
+    cy = torch.zeros((B, len(tk.CYCLES)), dtype=torch.int64, device=o.device) if cycles else None
+    ptr = lambda x: None if x is None else x.data_ptr()
+    err = lib.mcrt_traverse(
+        ft.data_ptr(), cbvh.cl_bb.data_ptr(), cbvh.rec.data_ptr(), cbvh.tri.data_ptr(),
+        new((B, C, K), f32).data_ptr(), new((B, C), i32).data_ptr(), ptr(heap),
+        *(x.data_ptr() for x in outs), ptr(cy), B, K, C, Sp,
+        torch.cuda.current_stream().cuda_stream)
     check(err == 0, "kernel", f"the parent's kernel failed to launch: {err}")
-    return (*tk._unpad(o.shape[0], *outs[2:6]), outs[6]), cy
+    return (*tk._unpad(o.shape[0], *outs[:4]), outs[4]), cy
 
 
 def cycle_split(names, cycles) -> str:
-    """Mean clock64() cycles per block of each counter, as shares of the total."""
+    """Mean clock64() cycles per CTA of each counter, as shares of the total."""
     mean = cycles.double().mean(0).tolist()
     total = mean[0]
     return f"{total:.0f} cycles per block: " + ", ".join(
@@ -2567,9 +2575,10 @@ def batch_phase(scene, cbvh, card, pm_dir):
 
 def kernel_phase(scene, j, cbvh, card, parent, rng):
     """Phase 3: the traversal kernel against its plain version on five ray sets,
-    then timed per set at the main path's launch shape. Returns the per-set
-    timing rows, the largest |kernel - plain| of t, u and v, and the first
-    `lanes` rays of each set (sorted as timed; "mixed" in lane order)."""
+    at both launch widths, then timed per set at the main path's launch shape
+    and at LARGE_LAUNCH rays. Returns the per-set timing rows, the largest
+    |kernel - plain| of t, u and v, and the first `lanes` rays of each set
+    (sorted as timed; "mixed" in lane order)."""
     import numpy as np
     import torch
 
@@ -2579,7 +2588,7 @@ def kernel_phase(scene, j, cbvh, card, parent, rng):
     from mcrt_tpu_torch.ops import traverse_kernel as tk
 
     dev = cbvh.rec.device
-    Sp = cbvh.rec.shape[1]
+    C, Sp, _ = cbvh.rec.shape
     cam = scene.cameras[0]
     R = CHECK_RAYS
     pix = rng.integers(0, cam.width * cam.height, R)
@@ -2607,30 +2616,33 @@ def kernel_phase(scene, j, cbvh, card, parent, rng):
             perm = torch.argsort(cluster_bvh.coherence_key(o, d, bbl, bbh), stable=True)
             o, d = o[perm].contiguous(), d[perm].contiguous()
         sorted_sets[name] = (o, d)
-        tk.kernel.launches = 0
-        kt, kid, ku, kv, kst = tk.traverse(cbvh, o, d)
-        torch.cuda.synchronize()
-        check(tk.kernel.launches == 1, "kernel", f"{name}: wrapper did not launch the kernel")
         pt_, pid, pu, pv, pst = tk.traverse_plain(cbvh, o, d)
         torch.cuda.synchronize()
-        ids_same = bool((kid == pid).all())
-        hit = pid >= 0
-        t_ok = bool(torch.allclose(kt[hit], pt_[hit], rtol=5e-6, atol=0.0))
-        uv_err = float(torch.maximum((ku - pu).abs().max(), (kv - pv).abs().max()))
-        st_same = bool((kst == pst).all())
-        if bool(hit.any()):
-            max_err = max(max_err, float((kt[hit] - pt_[hit]).abs().max()), uv_err)
-        bitwise = bool((kt == pt_).all() & (ku == pu).all() & (kv == pv).all())
-        log("kernel", f"{name:8s} rays={o.shape[0]} hits={int(hit.sum())} ids_same={ids_same} "
-            f"t_ok={t_ok} max|duv|={uv_err:.3g} stats_same={st_same} bitwise={bitwise} "
-            f"candidates={int(kst[:, 0].sum())} rounds_sum={int(kst[:, 1].sum())} "
-            f"rounds_max={int(kst[:, 1].max())}")
-        check(ids_same and st_same and bitwise, "kernel", f"{name}: kernel and plain version differ")
-        if name == "parked":
-            check(int(kst[:, 1].max()) == 0 and bool((kid == -1).all()), "kernel",
-                  "parked block ran rounds or hit")
-        if name == "mixed":
-            check(bool((kid[::2] == -1).all()), "kernel", "parked lanes of mixed blocks hit")
+        for width in (1, 2):
+            tk.kernel.launches = tk.paired.launches = 0
+            kt, kid, ku, kv, kst = tk._launch(cbvh, o, d, stamp=False, width=width)
+            torch.cuda.synchronize()
+            check(tk.kernel.launches == 1 and tk.paired.launches == (width == 2), "kernel",
+                  f"{name}: wrapper did not launch the kernel at width {width}")
+            ids_same = bool((kid == pid).all())
+            hit = pid >= 0
+            t_ok = bool(torch.allclose(kt[hit], pt_[hit], rtol=5e-6, atol=0.0))
+            uv_err = float(torch.maximum((ku - pu).abs().max(), (kv - pv).abs().max()))
+            st_same = bool((kst == pst).all())
+            if bool(hit.any()):
+                max_err = max(max_err, float((kt[hit] - pt_[hit]).abs().max()), uv_err)
+            bitwise = bool((kt == pt_).all() & (ku == pu).all() & (kv == pv).all())
+            log("kernel", f"{name:8s} width {width} rays={o.shape[0]} hits={int(hit.sum())} "
+                f"ids_same={ids_same} t_ok={t_ok} max|duv|={uv_err:.3g} stats_same={st_same} "
+                f"bitwise={bitwise} candidates={int(kst[:, 0].sum())} "
+                f"rounds_sum={int(kst[:, 1].sum())} rounds_max={int(kst[:, 1].max())}")
+            check(ids_same and st_same and bitwise, "kernel",
+                  f"{name}: kernel at width {width} and plain version differ")
+            if name == "parked":
+                check(int(kst[:, 1].max()) == 0 and bool((kid == -1).all()), "kernel",
+                      "parked block ran rounds or hit")
+            if name == "mixed":
+                check(bool((kid[::2] == -1).all()), "kernel", "parked lanes of mixed blocks hit")
 
     # Timing at the main path's launch shape: one call per `lanes` sorted rays.
     lanes = mt.RenderConfig().lanes
@@ -2640,44 +2652,80 @@ def kernel_phase(scene, j, cbvh, card, parent, rng):
     for name in kinds:
         o, d = sorted_sets[name]
         o, d = o[:lanes].contiguous(), d[:lanes].contiguous()
-        run = lambda: tk.traverse(cbvh, o, d)
-        old_ms = None
-        if parent:   # in turns: old, new, new, old
-            run_old = lambda: parent_traverse(parent, cbvh, o, d)
-            t_old = [cuda_time_ms(run_old, reps=20, warmup=2)]
-            t_new = [cuda_time_ms(run, reps=20, warmup=2) for _ in range(2)]
-            t_old.append(cuda_time_ms(run_old, reps=20, warmup=2))
-            ms, old_ms = sum(t_new) / 2, sum(t_old) / 2
-        else:
-            ms = cuda_time_ms(run, reps=20, warmup=2)
+        ms, old_ms, turns = timed_against_parent(tk, parent, cbvh, o, d)
+        single_ms = cuda_time_ms(lambda: tk._launch(cbvh, o, d, stamp=False, width=1), reps=20,
+                                 warmup=2)
         plain_ms = cuda_time_ms(lambda: tk.traverse_plain(cbvh, o, d), reps=2, warmup=1)
+        tk.paired.launches = 0
         *_, st = tk.traverse(cbvh, o, d)
+        width = 1 + tk.paired.launches
         B = st.shape[0]
         cand, rnd = st[:, 0].double(), st[:, 1].double()
         rounds = int(rnd.sum())
         bound_ms, by, tri_visits = traversal_bound(tk, cbvh, o, d, st)
         timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
-        vs_old = "parent's kernel: not given"
-        if old_ms is not None:
-            vs_old = (f"parent's kernel {old_ms:.4f} ms ({t_old[0]:.4f}, {t_old[1]:.4f}; new "
-                      f"{t_new[0]:.4f}, {t_new[1]:.4f}), {old_ms / ms:.2f}x faster")
-        log("kernel", f"time {name:8s} {lanes} rays, {B} blocks on {n_sm} SMs ({100 * min(B, n_sm) / n_sm:.1f}% "
-            f"of SMs hold a block); candidates per block mean {float(cand.mean()):.1f} max "
+        log("kernel", f"time {name:8s} {lanes} rays, {B} blocks x {width} CTAs on {n_sm} SMs "
+            f"({100 * min(width * B, n_sm) / n_sm:.1f}% of SMs hold a CTA; {tk.resident_pairs(tk.BLOCK, C, Sp)} "
+            f"pairs fit); candidates per block mean {float(cand.mean()):.1f} max "
             f"{int(cand.max())}; rounds {rounds}, per block mean {float(rnd.mean()):.1f} max "
             f"{int(rnd.max())}; {tri_visits:.0f} real triangles visited ({tri_visits / (rounds * Sp):.4f} "
-            f"of the slots): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-            f"({by}), {ms / bound_ms:.1f}x the bound; {vs_old} | {card}")
+            f"of the slots): kernel {ms:.4f} ms (one CTA a block {single_ms:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}), {ms / bound_ms:.1f}x the bound; "
+            f"{turns} | {card}")
         *_, cst, cyc = tk.traverse_cycles(cbvh, o, d)
         check(torch.equal(cst, st), "kernel", "the stamping variant's stats differ")
-        log("kernel", f"cycles {name:8s} kernel: {cycle_split(tk.CYCLES, cyc)} (select, load and "
-            f"producer_wait are the producer warp's; staging_wait and forms a consumer's) | {card}")
-        if parent is not None and hasattr(parent, "mcrt_traverse_cycles"):
+        who = {"": cyc} if width == 1 else {"leaders ": cyc[0::2], "peers ": cyc[1::2]}
+        for part, rows in who.items():
+            log("kernel", f"cycles {name:8s} kernel, {part}{cycle_split(tk.CYCLES, rows)} (select, "
+                f"load and producer_wait are the producer warp's; staging_wait and forms a "
+                f"consumer's) | {card}")
+        if parent is not None:
             (*_, pst), pcyc = parent_traverse(parent, cbvh, o, d, cycles=True)
-            log("kernel", f"cycles {name:8s} parent's kernel: {cycle_split(PARENT_CYCLES, pcyc)}; "
+            log("kernel", f"cycles {name:8s} parent's kernel: {cycle_split(tk.CYCLES, pcyc)}; "
                 f"rounds {int(pst[:, 1].sum())} | {card}")
         torch.cuda.synchronize()
+    # A launch of the batch renders' size: one CTA a block by the rule, as in
+    # the parent, which it must not be slower than.
+    for name in ("camera", "surface"):
+        if name == "camera":
+            pix = rng.integers(0, cam.width * cam.height, LARGE_LAUNCH)
+            r = cam_mod.generate_rays(cam, torch.as_tensor(pix % cam.width, device=dev),
+                                      torch.as_tensor(pix // cam.width, device=dev),
+                                      torch.zeros(LARGE_LAUNCH, dtype=torch.int64, device=dev), 0,
+                                      torch.float32)
+            o, d = r.origin, r.direction
+        else:
+            o, d = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                    for x in surface_rays(scene, LARGE_LAUNCH, rng))
+        perm = torch.argsort(cluster_bvh.coherence_key(o, d, bbl, bbh), stable=True)
+        o, d = o[perm].contiguous(), d[perm].contiguous()
+        tk.paired.launches = 0
+        k = tk.traverse(cbvh, o, d)
+        torch.cuda.synchronize()
+        check(tk.paired.launches == 0, "kernel", f"{LARGE_LAUNCH} rays ran as pairs")
+        if parent is not None:
+            check(all(torch.equal(a, b) for a, b in zip(k, parent_traverse(parent, cbvh, o, d)[0])),
+                  "kernel", f"{name} at {LARGE_LAUNCH} rays: the kernel and the parent's differ")
+        ms, _, turns = timed_against_parent(tk, parent, cbvh, o, d)
+        log("kernel", f"time {name:8s} {LARGE_LAUNCH} rays, {k[4].shape[0]} blocks x 1 CTA: kernel "
+            f"{ms:.4f} ms; {turns} | {card}")
     return timing, max_err, {name: (o[:lanes].contiguous(), d[:lanes].contiguous())
                              for name, (o, d) in sorted_sets.items()}
+
+
+def timed_against_parent(tk, parent, cbvh, o, d):
+    """(ms, the parent's ms or None, a line) of tk.traverse over these rays,
+    in turns with the parent's kernel where it is given: old, new, new, old."""
+    run = lambda: tk.traverse(cbvh, o, d)
+    if parent is None:
+        return cuda_time_ms(run, reps=20, warmup=2), None, "parent's kernel: not given"
+    run_old = lambda: parent_traverse(parent, cbvh, o, d)
+    t_old = [cuda_time_ms(run_old, reps=20, warmup=2)]
+    t_new = [cuda_time_ms(run, reps=20, warmup=2) for _ in range(2)]
+    t_old.append(cuda_time_ms(run_old, reps=20, warmup=2))
+    ms, old_ms = sum(t_new) / 2, sum(t_old) / 2
+    return ms, old_ms, (f"parent's kernel {old_ms:.4f} ms ({t_old[0]:.4f}, {t_old[1]:.4f}; new "
+                        f"{t_new[0]:.4f}, {t_new[1]:.4f}), {old_ms / ms:.2f}x faster")
 
 
 def traversal_row(out):

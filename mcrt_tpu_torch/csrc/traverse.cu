@@ -76,16 +76,43 @@
 //      That matters: camera rays of a regular mesh land exactly on shared
 //      edges, where the last bit decides which triangle wins.
 //
-// The launch still has B = rays / K blocks: 64 at the default 16384 lanes, for
-// 132 SMs, and the launch lasts as long as its block of most rounds. A
-// two-block thread-block cluster per ray block is the next step for that.
+// Launch width. A launch has B = rays / K ray blocks: 64 at the default 16384
+// lanes, for 132 SMs, and it lasts as long as its block of most rounds. When
+// every pair can be resident at once (B <= the two-CTA clusters of this kernel
+// that fit on the card, cudaOccupancyMaxActiveClusters), each ray block runs as
+// a two-CTA thread-block cluster, so 2B SMs share the work; otherwise one CTA
+// per block, as above. Both CTAs of a pair hold the same K rays:
+//
+//   - Cull: each CTA culls K/2 of the rays, four threads a ray; every warp ORs
+//     its tile mask into both CTAs' masks (distributed shared memory), so after
+//     one cluster barrier a tile both hold the union and compact the same
+//     candidates, each writing its rays' half of every candidate's column. The
+//     first keys are split by candidate, the peer's written into the leader's
+//     heap.
+//   - Rounds: the leader's producer warp keeps the heap and the one-round-stale
+//     choice. A key is read against the pair's published best t: per ray the
+//     least of the leader's s_bt and the peer's, which the peer's consumers
+//     store into the leader (s_bt2) before they arrive on the leader's done
+//     barrier. The leader tells the peer n and the ids, and issues both TMA
+//     copies: slots [0, ceil(n/2)) into its own record buffer, [ceil(n/2), n)
+//     into the peer's, completing on the peer's full barrier.
+//   - Each CTA keeps per ray the best over its half: (t, round, slot, u, v, id)
+//     with a strict t < best across rounds and the first minimum within one, so
+//     the pair's result is the least (t, round, slot) of the two: the serial
+//     loop's. The peer hands its bests to the leader through one cluster
+//     barrier; the leader writes the outputs and the stats.
+//
+// mcrt_traverse's `width` is 1, 2 (forced; for tests) or 0 (the rule above);
+// mcrt_traverse_pairs gives the clusters that fit, queried once per device and
+// shared-memory size.
 //
 // mcrt_traverse returns kErrSmem when the buffers do not fit in the shared
 // memory a block may opt in to, kErrHeap when a block could need the global
 // heap and none was given, kErrK for a K over kMaxK or not a multiple of 32,
-// else cudaGetLastError() after the launch; the wrapper raises if it is not 0.
-// Given a `cycles` array it launches the variant that stamps clock64() per
-// block (cull, selection, staging, waits, forms); the main path passes none.
+// kErrWidth for a width other than 0, 1 or 2, else the launch's CUDA error; the
+// wrapper raises if it is not 0. Given a `cycles` array it launches the variant
+// that stamps clock64() per CTA (cull, selection, staging, waits, forms); the
+// main path passes none.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -110,10 +137,11 @@ constexpr int kThreads = 2 * kMaxK + 32;
 constexpr int kErrSmem = -1;
 constexpr int kErrHeap = -2;
 constexpr int kErrK = -3;
+constexpr int kErrWidth = -4;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kNone = ~0ull;
 
-// Per-block cycle counters of the stamping variant.
+// Per-CTA cycle counters of the stamping variant.
 enum { kCycTotal, kCycCull, kCycSelect, kCycLoad, kCycProdWait, kCycStageWait, kCycForms, kNCyc };
 
 // NaN-propagating min and max, as torch.minimum and torch.maximum: one
@@ -144,31 +172,81 @@ __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
                "r"(bytes)
                : "memory");
 }
+// Waits for the phase of `parity`; kCluster: acquiring at cluster scope what the
+// other CTA of the pair released when it arrived.
+template <bool kCluster = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   const uint32_t a = smem_addr(bar);
   uint32_t done = 0;
   while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
+    if (kCluster) {
+      asm volatile(
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(a), "r"(parity)
+          : "memory");
+    } else {
+      asm volatile(
+          "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(a), "r"(parity)
+          : "memory");
+    }
   }
 }
-// One TMA bulk copy global -> shared, completing `bytes` on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+// One TMA bulk copy global -> shared, completing `bytes` on `bar`; `dst` and
+// `bar` are shared::cluster addresses, of this CTA or of the other of the pair.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, unsigned bytes, uint32_t bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// ---- the pair: a two-CTA cluster ----
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// Every thread of both CTAs: release what each wrote, acquire the other's.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n barrier.cluster.wait;" ::: "memory");  // release, acquire
+}
+// The same shared variable in CTA `rank` of the cluster: a generic pointer
+// (loads, stores and atomics reach it through distributed shared memory) or a
+// shared::cluster address (mbarriers and TMA).
+template <typename T>
+__device__ __forceinline__ T* peer_ptr(T* p, unsigned rank) {
+  uint64_t r;
+  asm volatile("mapa.u64 %0, %1, %2;" : "=l"(r) : "l"(p), "r"(rank));
+  return reinterpret_cast<T*>(r);
+}
+__device__ __forceinline__ uint32_t peer_addr(const void* p, unsigned rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx_remote(uint32_t bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.release.cluster.shared::cluster.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
 }
 
 // One ray: direction, origin, and direction x origin.
 struct Ray {
   float dx, dy, dz, ox, oy, oz, cx, cy, cz;
 };
+__device__ __forceinline__ Ray load_ray(const float4* rays, size_t ray) {
+  const float4 r0 = rays[ray * 3 + 0], r1 = rays[ray * 3 + 1], r2 = rays[ray * 3 + 2];
+  return {r0.x, r0.y, r0.z, r1.x, r1.y, r1.z, r2.x, r2.y, r2.z};
+}
 
 // Slab test of one AABB (lo xyz, 0, hi xyz, 0): its entry and exit distances.
 // A NaN box (the cull's tile padding) gives NaN, which no test below passes.
@@ -260,20 +338,24 @@ __device__ __forceinline__ bool forms(const Row& row, const Ray& y, float tb, fl
 
 // A candidate's key against the published best t: the least entry distance
 // among the rays whose entry lies below their best t (warp-uniform result).
-__device__ __forceinline__ float column_key(const float* col, const float* bt, int K, int lane) {
+// In a pair (kPair), a ray's best t is the lesser of bt and the peer's bt2.
+template <bool kPair>
+__device__ __forceinline__ float column_key(const float* col, const float* bt, const float* bt2,
+                                            int K, int lane) {
   float m = kBig;
   for (int q = lane; q < K; q += 32) {
     const float x = col[q];
-    if (x < bt[q]) m = fminf(m, x);
+    if (x < (kPair ? fminf(bt[q], bt2[q]) : bt[q])) m = fminf(m, x);
   }
   for (int off = 16; off; off >>= 1) m = fminf(m, __shfl_xor_sync(kFull, m, off));
   return m;
 }
 
-// The producer's choice: the candidate of least (key, index) against `bt`,
-// removed from the heap; -1 when none is left whose key is below BIG.
-__device__ int choose(unsigned long long* heap, int& hn, const float* tn_b, const float* bt, int K,
-                      int lane) {
+// The producer's choice: the candidate of least (key, index) against `bt` (and
+// `bt2`), removed from the heap; -1 when none is left whose key is below BIG.
+template <bool kPair>
+__device__ int choose(unsigned long long* heap, int& hn, const float* tn_b, const float* bt,
+                      const float* bt2, int K, int lane) {
   for (;;) {
     if (hn == 0) return -1;
     unsigned long long top = 0, child = kNone;
@@ -285,7 +367,7 @@ __device__ int choose(unsigned long long* heap, int& hn, const float* tn_b, cons
     top = __shfl_sync(kFull, top, 0);
     child = __shfl_sync(kFull, child, 0);
     const int j = static_cast<int>(top & 0xffffffffu);
-    const float key = column_key(tn_b + static_cast<size_t>(j) * K, bt, K, lane);
+    const float key = column_key<kPair>(tn_b + static_cast<size_t>(j) * K, bt, bt2, K, lane);
     const unsigned long long e = key < kBig ? pack(key, j) : kNone;
     if (e == kNone || e < child) {  // dropped, or still the least: pop it
       --hn;
@@ -305,7 +387,17 @@ __device__ int choose(unsigned long long* heap, int& hn, const float* tn_b, cons
   }
 }
 
-template <bool kStamp>
+// Dynamic shared memory of a CTA: two record buffers (of half a record in a
+// pair), the shared heap, the cull's double-buffered AABB tile and group boxes,
+// the double-buffered published best t (and, in a pair, the peer's), and two
+// id buffers.
+__host__ __device__ constexpr size_t smem_bytes(int K, int C, int Sp, bool pair) {
+  return static_cast<size_t>(pair ? Sp / 2 : Sp) * 2 * kRowBytes + static_cast<size_t>(Sp) * 2 * 4 +
+         static_cast<size_t>(heap_slots(C)) * 8 +
+         sizeof(float) * (2 * kTile * 8 + 2 * kGroups * 8 + (pair ? 4 : 2) * K);
+}
+
+template <bool kStamp, bool kPair>
 __global__ void __launch_bounds__(kThreads) traverse_kernel(
     const float4* __restrict__ rays,  // (B*K, 3) float4
     const float* __restrict__ cl_bb,  // (C, 8)
@@ -316,53 +408,54 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(
     unsigned long long* heap_g,       // (B, C) scratch, or null when C <= kHeapShared
     float* __restrict__ out_t, int* __restrict__ out_id, float* __restrict__ out_u,
     float* __restrict__ out_v, int* __restrict__ stats,  // (B, 2)
-    long long* __restrict__ cycles,                      // (B, kNCyc) when kStamp
+    long long* __restrict__ cycles,                      // (CTAs, kNCyc) when kStamp
     int K, int C, int Sp) {
+  constexpr int kSub = kPair ? 4 : 2;  // threads that cull one ray
+  const int Sh = kPair ? Sp / 2 : Sp;  // record rows a buffer holds
   extern __shared__ __align__(128) unsigned char smem[];
-  float4* s_rec = reinterpret_cast<float4*>(smem);                        // 2 x Sp x 5
+  float4* s_rec = reinterpret_cast<float4*>(smem);                        // 2 x Sh x 5
   unsigned long long* s_heap =
-      reinterpret_cast<unsigned long long*>(s_rec + 2 * Sp * 5);          // heap_slots(C)
+      reinterpret_cast<unsigned long long*>(s_rec + 2 * Sh * 5);          // heap_slots(C)
   float4* s_bb = reinterpret_cast<float4*>(s_heap + heap_slots(C));      // 2 x kTile x 2
   float4* s_grp = s_bb + 4 * kTile;                                       // 2 x kGroups x 2
   float* s_bt = reinterpret_cast<float*>(s_grp + 4 * kGroups);            // 2 x K published best t
-  int* s_tri = reinterpret_cast<int*>(s_bt + 2 * K);                      // 2 x Sp
+  float* s_bt2 = s_bt + 2 * K;                                            // 2 x K the peer's (pair)
+  int* s_tri = reinterpret_cast<int*>(s_bt + (kPair ? 4 : 2) * K);        // 2 x Sp
   __shared__ uint64_t full_bar[2], done_bar[2];
   __shared__ int s_n[2];
   __shared__ unsigned s_mask[2][kMaskW];
 
   const long long t_start = kStamp ? clock64() : 0;
   const int t = threadIdx.x;
-  const int b = blockIdx.x;
+  const unsigned rank = kPair ? cluster_rank() : 0;  // 0: the leader
+  const int b = kPair ? blockIdx.x >> 1 : blockIdx.x;
   const int lane = t & 31;
   const int nthreads = blockDim.x;
   const int ncons = 2 * K;
   const bool consumer = t < ncons;          // threads 2K..2kMaxK-1 only help with the cull
   const bool producer = t >= 2 * kMaxK;
-  const int k = t >> 1;  // the ray this thread culls for
-  const int h = t & 1;   // and which half of a tile's clusters it tests
+  const int k = (kPair ? rank * (K / 2) : 0) + t / kSub;  // the ray this thread culls for
+  const int h = t % kSub;  // and which of a tile's clusters it tests
   float* tn_b = tn_s + static_cast<size_t>(b) * C * K;
   int* cand_b = cand_s + static_cast<size_t>(b) * C;
 
   Ray y = {};
-  if (consumer) {
-    const size_t ray = static_cast<size_t>(b) * K + k;
-    const float4 r0 = rays[ray * 3 + 0], r1 = rays[ray * 3 + 1], r2 = rays[ray * 3 + 2];
-    y = {r0.x, r0.y, r0.z, r1.x, r1.y, r1.z, r2.x, r2.y, r2.z};
-  }
+  if (consumer) y = load_ray(rays, static_cast<size_t>(b) * K + k);
   const float ix = __fdiv_rn(1.0f, y.dx), iy = __fdiv_rn(1.0f, y.dy), iz = __fdiv_rn(1.0f, y.dz);
 
   if (t < 2 * kMaskW) s_mask[t / kMaskW][t % kMaskW] = 0u;
   if (t == 0) {
     mbar_init(&full_bar[0], 32);
     mbar_init(&full_bar[1], 32);
-    mbar_init(&done_bar[0], ncons);
-    mbar_init(&done_bar[1], ncons);
+    mbar_init(&done_bar[0], kPair ? 2 * ncons : ncons);  // a pair's rounds end on the leader's
+    mbar_init(&done_bar[1], kPair ? 2 * ncons : ncons);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int e = t; e < 2 * K; e += nthreads) s_bt[e] = kBig;
+  for (int e = t; e < (kPair ? 4 : 2) * K; e += nthreads) s_bt[e] = kBig;
+  if (kPair) cluster_sync();  // both CTAs' masks and barriers are set before either touches them
 
   // ---- 1. cull, compacting the candidates in cluster order ----
-  // Bit i of a tile's mask: some ray hits cluster c0 + i.
+  // Bit i of a tile's mask: some ray (of either CTA of a pair) hits cluster c0 + i.
   const float4* bb4 = reinterpret_cast<const float4*>(cl_bb);
   const int ntiles = (C + kTile - 1) / kTile;
   const float qnan = __int_as_float(0x7fffffff);
@@ -395,16 +488,17 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(
     if (t < 2 * kTile) pre = 2 * (c0 + kTile) + t < 2 * C ? bb4[2 * (c0 + kTile) + t] : nan4;
     unsigned mine[kMaskW] = {};
     if (consumer) {
-      // The ray's two threads test alternate group boxes and share the results.
+      // The ray's threads test alternate group boxes and share the results.
       unsigned gm = 0;
 #pragma unroll
-      for (int g = 0; g < kGroups; g += 2) gm |= unsigned(may_hit(grp + 2 * (g + h), y, ix, iy, iz)) << (g + h);
-      gm |= __shfl_xor_sync(kFull, gm, 1);
+      for (int g = 0; g < kGroups; g += kSub) gm |= unsigned(may_hit(grp + 2 * (g + h), y, ix, iy, iz)) << (g + h);
+#pragma unroll
+      for (int off = 1; off < kSub; off <<= 1) gm |= __shfl_xor_sync(kFull, gm, off);
 #pragma unroll
       for (int g = 0; g < kGroups; ++g) {
         if (!((gm >> g) & 1u)) continue;
 #pragma unroll
-        for (int m = 0; m < kGroup; m += 2) {
+        for (int m = 0; m < kGroup; m += kSub) {
           const int i = kGroup * g + m + h;
           if (candidate(tile + 2 * i, y, ix, iy, iz)) mine[g * kGroup / 32] |= 1u << (i & 31);
         }
@@ -413,154 +507,223 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(
 #pragma unroll
     for (int w = 0; w < kMaskW; ++w) {
       const unsigned any = __reduce_or_sync(kFull, mine[w]);
-      if (lane == 0 && any) atomicOr(&s_mask[it & 1][w], any);
+      if (lane == 0 && any) {
+        atomicOr(&s_mask[it & 1][w], any);
+        if (kPair) atomicOr(peer_ptr(&s_mask[it & 1][w], rank ^ 1u), any);
+      }
     }
     if (t < 2 * kTile) group_box(pre, s_grp + ((it + 1) & 1) * 2 * kGroups);
-    __syncthreads();  // the mask and the next tile's group boxes are complete
+    // The mask (both CTAs' ORs in a pair) and the next tile's group boxes are complete.
+    if (kPair) cluster_sync(); else __syncthreads();
     int q = ncand;
 #pragma unroll
     for (int w = 0; w < kMaskW; ++w) {
       for (unsigned m = s_mask[it & 1][w]; m; m &= m - 1, ++q) {
         const int i = 32 * w + __ffs(m) - 1;
-        if (consumer && ((q - ncand) & 1) == h)
+        if (consumer && (q - ncand) % kSub == h)
           tn_b[static_cast<size_t>(q) * K + k] = entry(tile + 2 * i, y, ix, iy, iz);
-        if (t == 0) cand_b[q] = c0 + i;
+        if (t == 0 && rank == 0) cand_b[q] = c0 + i;
       }
     }
     ncand = q;
   }
-  __syncthreads();
+  if (kPair) cluster_sync(); else __syncthreads();  // every column is written
   unsigned long long* heap =
       ncand <= kHeapShared ? s_heap : heap_g + static_cast<size_t>(b) * C;
-  // First keys: every best t is BIG, so a candidate's key is its column minimum.
-  for (int j = t >> 5; j < ncand; j += nthreads >> 5) {
-    const float key = column_key(tn_b + static_cast<size_t>(j) * K, s_bt, K, lane);
-    if (lane == 0) heap[j] = pack(key, j);
+  {
+    // First keys: every best t is BIG, so a candidate's key is its column
+    // minimum; in a pair each CTA takes every other candidate, into the leader's heap.
+    unsigned long long* dst = kPair && rank && heap == s_heap ? peer_ptr(s_heap, 0u) : heap;
+    const int warps = (nthreads >> 5) * (kPair ? 2 : 1);
+    for (int j = (t >> 5) * (kPair ? 2 : 1) + rank; j < ncand; j += warps) {
+      const float key = column_key<false>(tn_b + static_cast<size_t>(j) * K, s_bt, nullptr, K, lane);
+      if (lane == 0) dst[j] = pack(key, j);
+    }
   }
-  __syncthreads();
+  if (kPair) cluster_sync(); else __syncthreads();
   const long long t_cull = kStamp ? clock64() : 0;
 
+  // The ray pair of a consumer in the rounds, and its best over the CTA's slots.
+  const int p = t >> 2, qt = t & 3;
+  float bt[2] = {kBig, kBig}, bu[2] = {0.0f, 0.0f}, bv[2] = {0.0f, 0.0f};
+  int bid[2] = {-1, -1}, br[2] = {0, 0}, r = 0;
+  long long c_wait = 0, c_forms = 0;
   if (producer) {
-    // ---- 2-3. producer warp: choose, then stage, one round ahead ----
-    long long c_select = 0, c_load = 0, c_wait = 0, t0 = kStamp ? clock64() : 0;
-    int hn = ncand;
-    if (lane == 0)
-      for (int i = hn / 2 - 1; i >= 0; --i) sift_down(heap, hn, i);
-    __syncwarp();
-    for (int r = 0;; ++r) {
-      const int buf = r & 1;
-      if (r >= 2) {  // round r-2 is done: its buffer is free, its best t published
+    if (rank == 0) {
+      // ---- 2-3. producer warp: choose, then stage, one round ahead ----
+      long long c_select = 0, c_load = 0, c_pwait = 0, t0 = kStamp ? clock64() : 0;
+      int hn = ncand;
+      if (lane == 0)
+        for (int i = hn / 2 - 1; i >= 0; --i) sift_down(heap, hn, i);
+      __syncwarp();
+      for (int r = 0;; ++r) {
+        const int buf = r & 1;
+        if (r >= 2) {  // round r-2 is done: its buffers are free, its best t published
+          if (kStamp) { const long long x = clock64(); c_select += x - t0; t0 = x; }
+          mbar_wait<kPair>(&done_bar[buf], ((r - 2) >> 1) & 1);
+          if (kStamp) { const long long x = clock64(); c_pwait += x - t0; t0 = x; }
+        }
+        const int j = choose<kPair>(heap, hn, tn_b, s_bt + buf * K, s_bt2 + buf * K, K, lane);
         if (kStamp) { const long long x = clock64(); c_select += x - t0; t0 = x; }
-        mbar_wait(&done_bar[buf], ((r - 2) >> 1) & 1);
-        if (kStamp) { const long long x = clock64(); c_wait += x - t0; t0 = x; }
-      }
-      const int j = choose(heap, hn, tn_b, s_bt + buf * K, K, lane);
-      if (kStamp) { const long long x = clock64(); c_select += x - t0; t0 = x; }
-      if (j < 0) {  // no cluster left: tell the consumers to stop
-        if (lane == 0) s_n[buf] = -1;
-        mbar_arrive(&full_bar[buf]);
-        break;
-      }
-      const int cl = cand_b[j];
-      const int4* src = reinterpret_cast<const int4*>(tri + static_cast<size_t>(cl) * Sp);
-      int4* dst = reinterpret_cast<int4*>(s_tri + buf * Sp);
-      int n = 0;
-      for (int e = lane; e < Sp / 4; e += 32) {
-        const int4 v = src[e];
-        dst[e] = v;
-        n += (v.x >= 0) + (v.y >= 0) + (v.z >= 0) + (v.w >= 0);
-      }
-      n = __reduce_add_sync(kFull, n);  // padding sits at the tail: n real triangles
-      if (lane == 0) {
-        s_n[buf] = n;
-        if (n > 0) {
-          mbar_arrive_tx(&full_bar[buf], static_cast<unsigned>(n) * kRowBytes);
-          bulk_copy(s_rec + buf * Sp * 5, rec + static_cast<size_t>(cl) * Sp * 5,
-                    static_cast<unsigned>(n) * kRowBytes, &full_bar[buf]);
+        if (j < 0) {  // no cluster left: tell the consumers to stop
+          if (lane == 0) {
+            s_n[buf] = -1;
+            if (kPair) *peer_ptr(&s_n[buf], 1u) = -1;
+          }
+          mbar_arrive(&full_bar[buf]);
+          if (kPair) mbar_arrive_remote(peer_addr(&full_bar[buf], 1u));
+          break;
+        }
+        const int cl = cand_b[j];
+        const int4* src = reinterpret_cast<const int4*>(tri + static_cast<size_t>(cl) * Sp);
+        int4* dst = reinterpret_cast<int4*>(s_tri + buf * Sp);
+        int4* pdst = kPair ? peer_ptr(dst, 1u) : nullptr;
+        int n = 0;
+        for (int e = lane; e < Sp / 4; e += 32) {
+          const int4 v = src[e];
+          dst[e] = v;
+          if (kPair) pdst[e] = v;
+          n += (v.x >= 0) + (v.y >= 0) + (v.z >= 0) + (v.w >= 0);
+        }
+        n = __reduce_add_sync(kFull, n);  // padding sits at the tail: n real triangles
+        const int h0 = kPair ? (n + 1) >> 1 : n;  // the leader's slots [0, h0), the peer's [h0, n)
+        const float4* rsrc = rec + static_cast<size_t>(cl) * Sp * 5;
+        if (lane == 0) {
+          s_n[buf] = n;
+          if (h0 > 0) {
+            mbar_arrive_tx(&full_bar[buf], static_cast<unsigned>(h0) * kRowBytes);
+            bulk_copy(smem_addr(s_rec + buf * Sh * 5), rsrc, static_cast<unsigned>(h0) * kRowBytes,
+                      smem_addr(&full_bar[buf]));
+          } else {
+            mbar_arrive(&full_bar[buf]);
+          }
+          if (kPair) {
+            *peer_ptr(&s_n[buf], 1u) = n;
+            const uint32_t pbar = peer_addr(&full_bar[buf], 1u);
+            if (n > h0) {
+              mbar_arrive_tx_remote(pbar, static_cast<unsigned>(n - h0) * kRowBytes);
+              bulk_copy(peer_addr(s_rec + buf * Sh * 5, 1u), rsrc + h0 * 5,
+                        static_cast<unsigned>(n - h0) * kRowBytes, pbar);
+            } else {
+              mbar_arrive_remote(pbar);
+            }
+          }
         } else {
           mbar_arrive(&full_bar[buf]);
+          if (kPair) mbar_arrive_remote(peer_addr(&full_bar[buf], 1u));
         }
-      } else {
-        mbar_arrive(&full_bar[buf]);
+        if (kStamp) { const long long x = clock64(); c_load += x - t0; t0 = x; }
       }
-      if (kStamp) { const long long x = clock64(); c_load += x - t0; t0 = x; }
+      if (kStamp && lane == 0) {
+        long long* cy = cycles + static_cast<size_t>(blockIdx.x) * kNCyc;
+        cy[kCycSelect] = c_select;
+        cy[kCycLoad] = c_load;
+        cy[kCycProdWait] = c_pwait;
+      }
     }
-    if (kStamp && lane == 0) {
-      long long* cy = cycles + static_cast<size_t>(b) * kNCyc;
-      cy[kCycSelect] = c_select;
-      cy[kCycLoad] = c_load;
-      cy[kCycProdWait] = c_wait;
-    }
-    return;
-  }
-  if (!consumer) return;
-
-  // ---- 4. consumers: the rounds ----
-  // Four threads share two adjacent rays and take every fourth slot, so each
-  // record row they load from shared memory serves two rays.
-  const int p = t >> 2, qt = t & 3;
-  Ray ry[2];
+    if (!kPair) return;
+  } else if (consumer) {
+    // ---- 4. consumers: the rounds ----
+    // Four threads share two adjacent rays and take every fourth slot of the
+    // CTA's, so each record row they load from shared memory serves two rays.
+    Ray ry[2];
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const size_t ray = static_cast<size_t>(b) * K + 2 * p + j;
-    const float4 r0 = rays[ray * 3 + 0], r1 = rays[ray * 3 + 1], r2 = rays[ray * 3 + 2];
-    ry[j] = {r0.x, r0.y, r0.z, r1.x, r1.y, r1.z, r2.x, r2.y, r2.z};
-  }
-  float bt[2] = {kBig, kBig}, bu[2] = {0.0f, 0.0f}, bv[2] = {0.0f, 0.0f};
-  int bid[2] = {-1, -1}, r = 0;
-  long long c_wait = 0, c_forms = 0, t0 = kStamp ? clock64() : 0;
-  for (;; ++r) {
-    const int buf = r & 1;
-    mbar_wait(&full_bar[buf], (r >> 1) & 1);
-    if (kStamp) { const long long x = clock64(); c_wait += x - t0; t0 = x; }
-    const int n = s_n[buf];
-    if (n < 0) break;
-    const float4* sr = s_rec + buf * Sp * 5;
-    float tb[2] = {bt[0], bt[1]};
-    int sb[2] = {-1, -1};
+    for (int j = 0; j < 2; ++j) ry[j] = load_ray(rays, static_cast<size_t>(b) * K + 2 * p + j);
+    long long t0 = kStamp ? clock64() : 0;
+    for (;; ++r) {
+      const int buf = r & 1;
+      mbar_wait<kPair>(&full_bar[buf], (r >> 1) & 1);
+      if (kStamp) { const long long x = clock64(); c_wait += x - t0; t0 = x; }
+      const int n = s_n[buf];
+      if (n < 0) break;
+      const int h0 = kPair ? (n + 1) >> 1 : n;
+      const int off = rank ? h0 : 0, nl = rank ? n - h0 : h0;  // this CTA's slots: [off, off + nl)
+      const float4* sr = s_rec + buf * Sh * 5;
+      float tb[2] = {bt[0], bt[1]};
+      int sb[2] = {-1, -1};
 #pragma unroll 2
-    for (int s = qt; s < n; s += 4) {
-      const Row row = load_row(sr + s * 5);
+      for (int s = qt; s < nl; s += 4) {
+        const Row row = load_row(sr + s * 5);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float tt, u, v;
+          if (forms(row, ry[j], tb[j], tt, u, v)) { tb[j] = tt; sb[j] = s; }
+        }
+      }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        float tt, u, v;
-        if (forms(row, ry[j], tb[j], tt, u, v)) { tb[j] = tt; sb[j] = s; }
-      }
-    }
+        // The ray's four quarters: the nearer hit, ties to the lower slot.
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      // The ray's four quarters: the nearer hit, ties to the lower slot.
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        const float ot = __shfl_xor_sync(kFull, tb[j], off);
-        const int os = __shfl_xor_sync(kFull, sb[j], off);
-        if (os >= 0 && (sb[j] < 0 || ot < tb[j] || (ot == tb[j] && os < sb[j]))) {
-          tb[j] = ot;
-          sb[j] = os;
+        for (int o = 1; o <= 2; o <<= 1) {
+          const float ot = __shfl_xor_sync(kFull, tb[j], o);
+          const int os = __shfl_xor_sync(kFull, sb[j], o);
+          if (os >= 0 && (sb[j] < 0 || ot < tb[j] || (ot == tb[j] && os < sb[j]))) {
+            tb[j] = ot;
+            sb[j] = os;
+          }
+        }
+        if (sb[j] >= 0) {  // the winner's u and v, computed again as in the loop
+          forms(load_row(sr + sb[j] * 5), ry[j], kBig, bt[j], bu[j], bv[j]);
+          bid[j] = s_tri[buf * Sp + off + sb[j]];
+          br[j] = r;
         }
       }
-      if (sb[j] >= 0) {  // the winner's u and v, computed again as in the loop
-        forms(load_row(sr + sb[j] * 5), ry[j], kBig, bt[j], bu[j], bv[j]);
-        bid[j] = s_tri[buf * Sp + sb[j]];
+      // Published for the choice of round r+2: the peer's into the leader.
+      if (qt < 2) {
+        float* pub = kPair && rank ? peer_ptr(s_bt2, 0u) : s_bt;
+        pub[buf * K + 2 * p + qt] = qt ? bt[1] : bt[0];
       }
+      if (kPair && rank)
+        mbar_arrive_remote(peer_addr(&done_bar[buf], 0u));
+      else
+        mbar_arrive(&done_bar[buf]);
+      if (kStamp) { const long long x = clock64(); c_forms += x - t0; t0 = x; }
     }
-    if (qt < 2) s_bt[buf * K + 2 * p + qt] = qt ? bt[1] : bt[0];  // for the choice of round r+2
-    mbar_arrive(&done_bar[buf]);
-    if (kStamp) { const long long x = clock64(); c_forms += x - t0; t0 = x; }
   }
 
-  if (qt < 2) {
-    const size_t ray = static_cast<size_t>(b) * K + 2 * p + qt;
-    out_t[ray] = qt ? bt[1] : bt[0];
-    out_id[ray] = qt ? bid[1] : bid[0];
-    out_u[ray] = qt ? bu[1] : bu[0];
-    out_v[ray] = qt ? bv[1] : bv[0];
+  // A writing consumer's ray, 2p + (qt & 1), and its best (selects, not an
+  // index into the arrays, which would put them in local memory).
+  const bool second = qt & 1;
+  const int ray = 2 * p + second;
+  float ot = second ? bt[1] : bt[0], ou = second ? bu[1] : bu[0], ov = second ? bv[1] : bv[0];
+  int oid = second ? bid[1] : bid[0];
+  float* s_cmb = reinterpret_cast<float*>(s_bb);  // the peer's bests, once the cull is over: 5 x K
+  if (kPair) {
+    if (rank && consumer && qt < 2) {
+      float* c = peer_ptr(s_cmb, 0u);
+      c[ray] = ot;
+      c[K + ray] = __int_as_float(second ? br[1] : br[0]);
+      c[2 * K + ray] = ou;
+      c[3 * K + ray] = ov;
+      c[4 * K + ray] = __int_as_float(oid);
+    }
+    cluster_sync();  // the peer's bests are in the leader; no CTA touches the other's after this
+  }
+  if (!consumer) return;
+  if (qt < 2 && rank == 0) {
+    if (kPair) {  // the least (t, round, slot): on a tie in t and round, the leader's lower slots
+      const float pt = s_cmb[ray];
+      const int pr = __float_as_int(s_cmb[K + ray]);
+      if (pt < ot || (pt == ot && pr < (second ? br[1] : br[0]))) {
+        ot = pt;
+        ou = s_cmb[2 * K + ray];
+        ov = s_cmb[3 * K + ray];
+        oid = __float_as_int(s_cmb[4 * K + ray]);
+      }
+    }
+    const size_t o = static_cast<size_t>(b) * K + ray;
+    out_t[o] = ot;
+    out_id[o] = oid;
+    out_u[o] = ou;
+    out_v[o] = ov;
   }
   if (t == 0) {
-    stats[b * 2 + 0] = ncand;
-    stats[b * 2 + 1] = r;
+    if (rank == 0) {
+      stats[b * 2 + 0] = ncand;
+      stats[b * 2 + 1] = r;
+    }
     if (kStamp) {
-      long long* cy = cycles + static_cast<size_t>(b) * kNCyc;
+      long long* cy = cycles + static_cast<size_t>(blockIdx.x) * kNCyc;
       cy[kCycTotal] = clock64() - t_start;
       cy[kCycCull] = t_cull - t_start;
       cy[kCycStageWait] = c_wait;
@@ -569,33 +732,92 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(
   }
 }
 
-template <bool kStamp>
-int launch(const void* rays, const void* cl_bb, const void* rec, const void* tri, void* tn_scratch,
-           void* cand_scratch, void* heap_scratch, void* out_t, void* out_id, void* out_u,
-           void* out_v, void* stats, void* cycles, int B, int K, int C, int Sp, void* stream) {
-  // Dynamic shared memory: two record and id buffers, the shared heap, an AABB
-  // tile and the double-buffered published best t.
-  const size_t smem = static_cast<size_t>(Sp) * 2 * (kRowBytes + 4) +
-                      static_cast<size_t>(heap_slots(C)) * 8 +
-                      sizeof(float) * (2 * kTile * 8 + 2 * kGroups * 8 + 2 * K);
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem > static_cast<size_t>(optin)) return kErrSmem;
-  if (K > kMaxK || K % 32) return kErrK;
-  if (C > kHeapShared && heap_scratch == nullptr) return kErrHeap;
-  auto kern = traverse_kernel<kStamp>;
+struct Args {
+  const float4* rays;
+  const float* cl_bb;
+  const float4* rec;
+  const int* tri;
+  float* tn;
+  int* cand;
+  unsigned long long* heap;
+  float *t, *u, *v;
+  int *id, *stats;
+  long long* cycles;
+};
+
+template <bool kStamp, bool kPair>
+cudaError_t launch(const Args& a, int B, int K, int C, int Sp, size_t smem, cudaStream_t stream) {
+  auto kern = traverse_kernel<kStamp, kPair>;
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   }
-  kern<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(rays), static_cast<const float*>(cl_bb),
-      static_cast<const float4*>(rec), static_cast<const int*>(tri),
-      static_cast<float*>(tn_scratch), static_cast<int*>(cand_scratch),
-      static_cast<unsigned long long*>(heap_scratch), static_cast<float*>(out_t),
-      static_cast<int*>(out_id), static_cast<float*>(out_u), static_cast<float*>(out_v),
-      static_cast<int*>(stats), static_cast<long long*>(cycles), K, C, Sp);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kPair ? 2 * B : B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kPair ? 2 : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kPair ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, a.rays, a.cl_bb, a.rec, a.tri, a.tn, a.cand,
+                                           a.heap, a.t, a.id, a.u, a.v, a.stats, a.cycles, K, C, Sp);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+int optin_smem() {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return optin;
+}
+
+// Two-CTA clusters of the paired kernel that can be resident at once at this
+// shared memory (cudaOccupancyMaxActiveClusters), queried once per device and
+// size; 0 where a pair's buffers do not fit.
+int resident_pairs(int K, int C, int Sp) {
+  struct Entry {
+    int dev;
+    size_t smem;
+    int pairs;
+  };
+  static Entry cache[16];
+  static int cached = 0;
+  const size_t smem = smem_bytes(K, C, Sp, true);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  for (int i = 0; i < cached; ++i)
+    if (cache[i].dev == dev && cache[i].smem == smem) return cache[i].pairs;
+  int pairs = 0;
+  if (smem <= static_cast<size_t>(optin_smem())) {
+    auto kern = traverse_kernel<false, true>;
+    // As in launch, only above the default: a lower limit would refuse a later
+    // launch of a shape whose shared memory lies between the two.
+    if (smem > 48 * 1024) {
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(2);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if (cudaOccupancyMaxActiveClusters(&pairs, reinterpret_cast<const void*>(kern), &cfg) !=
+        cudaSuccess) {
+      cudaGetLastError();  // a refused query leaves no error for the next launch to report
+      pairs = 0;
+    }
+  }
+  if (cached < 16) cache[cached++] = {dev, smem, pairs};
+  return pairs;
 }
 
 }  // namespace
@@ -604,13 +826,30 @@ extern "C" int mcrt_traverse_heap_shared() { return kHeapShared; }
 
 extern "C" int mcrt_traverse_ncycles() { return kNCyc; }
 
+extern "C" int mcrt_traverse_pairs(int K, int C, int Sp) { return resident_pairs(K, C, Sp); }
+
 extern "C" int mcrt_traverse(const void* rays, const void* cl_bb, const void* rec, const void* tri,
                              void* tn_scratch, void* cand_scratch, void* heap_scratch, void* out_t,
                              void* out_id, void* out_u, void* out_v, void* stats, void* cycles,
-                             int B, int K, int C, int Sp, void* stream) {
-  return cycles == nullptr
-             ? launch<false>(rays, cl_bb, rec, tri, tn_scratch, cand_scratch, heap_scratch, out_t,
-                             out_id, out_u, out_v, stats, cycles, B, K, C, Sp, stream)
-             : launch<true>(rays, cl_bb, rec, tri, tn_scratch, cand_scratch, heap_scratch, out_t,
-                            out_id, out_u, out_v, stats, cycles, B, K, C, Sp, stream);
+                             int B, int K, int C, int Sp, int width, void* stream) {
+  if (K > kMaxK || K % 32) return kErrK;
+  if (width < 0 || width > 2) return kErrWidth;
+  if (width == 0) width = B <= resident_pairs(K, C, Sp) ? 2 : 1;
+  const bool pair = width == 2;
+  if (smem_bytes(K, C, Sp, pair) > static_cast<size_t>(optin_smem())) return kErrSmem;
+  if (C > kHeapShared && heap_scratch == nullptr) return kErrHeap;
+  const Args a = {static_cast<const float4*>(rays), static_cast<const float*>(cl_bb),
+                  static_cast<const float4*>(rec), static_cast<const int*>(tri),
+                  static_cast<float*>(tn_scratch), static_cast<int*>(cand_scratch),
+                  static_cast<unsigned long long*>(heap_scratch), static_cast<float*>(out_t),
+                  static_cast<float*>(out_u), static_cast<float*>(out_v), static_cast<int*>(out_id),
+                  static_cast<int*>(stats), static_cast<long long*>(cycles)};
+  const size_t smem = smem_bytes(K, C, Sp, pair);
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (cycles == nullptr)
+    e = pair ? launch<false, true>(a, B, K, C, Sp, smem, st) : launch<false, false>(a, B, K, C, Sp, smem, st);
+  else
+    e = pair ? launch<true, true>(a, B, K, C, Sp, smem, st) : launch<true, false>(a, B, K, C, Sp, smem, st);
+  return static_cast<int>(e);
 }

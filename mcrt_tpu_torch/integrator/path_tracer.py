@@ -28,6 +28,7 @@ of the path's indices, and the traversal is detached
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Callable, NamedTuple
 
 import torch
@@ -186,7 +187,7 @@ def make_bounce_step(
         ray_count = st.ray_count + st.alive.sum()
         trav_steps = st.trav_steps
         if hit.steps is not None:
-            step.counted = True
+            this().counted = True
             trav_steps = trav_steps + hit.steps
         missed = hit.surf_id < 0
         radiance = st.radiance
@@ -351,6 +352,10 @@ def make_bounce_step(
             prev_select_prob=prev_select_prob,
         )
 
+    # The step reaches itself through a weak reference: a closure over `step`
+    # would be a reference cycle, which keeps its tables and packs on the card
+    # after the render that made it returns, until a full garbage collection.
+    this = weakref.ref(step)
     step.counted = False
     step.capturable = getattr(intersect_fn, "capturable", True)
     bound = hasattr(intersect_fn, "leaves")

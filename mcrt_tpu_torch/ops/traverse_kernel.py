@@ -32,12 +32,17 @@ the same fused multiply-adds exactly (`_fma`), so on the card the two agree bit
 for bit, stats included. The wrapper sends CUDA tensors to the kernel and CPU
 tensors to the plain version, and raises for anything else.
 
+A launch whose B blocks can all be resident as two-CTA clusters (`pair_width`,
+from the clusters the card fits at the launch's shared memory) runs each block
+as a pair of CTAs that split every round's triangles; the results are the same
+bit for bit. A larger B keeps one CTA a block.
+
 `kernel.launches` counts the kernel's launches that ran. A launch made while
 the stream is captured into a CUDA graph runs nothing and is counted in
 `kernel.captured` instead; each replay of the graph adds the launches it holds
 (utils/cuda_graph.CapturedStep). The forward render's graphed bounce step
 holds two, so a render counts two launches a bounce step, as an eager loop
-does.
+does. `paired` counts the launches that ran as two-CTA clusters, alike.
 """
 from __future__ import annotations
 
@@ -73,6 +78,7 @@ class _Kernel(LaunchCounter):
 
 
 kernel = _Kernel()
+paired = LaunchCounter("traverse_kernel_paired")   # launches of two-CTA clusters
 
 
 def compile_source(src: pathlib.Path, stem: str) -> tuple[pathlib.Path, str]:
@@ -104,8 +110,10 @@ def build() -> ctypes.CDLL:
     lib_path, log = compile_source(_SRC, "traverse")
     lib = ctypes.CDLL(str(lib_path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.mcrt_traverse.argtypes = [vp] * 13 + [ci] * 4 + [vp]
+    lib.mcrt_traverse.argtypes = [vp] * 13 + [ci] * 5 + [vp]
     lib.mcrt_traverse.restype = ci
+    lib.mcrt_traverse_pairs.argtypes = [ci] * 3
+    lib.mcrt_traverse_pairs.restype = ci
     lib.mcrt_traverse_heap_shared.restype = ci
     lib.mcrt_traverse_ncycles.restype = ci
     if lib.mcrt_traverse_ncycles() != len(CYCLES):
@@ -119,6 +127,21 @@ def heap_shared() -> int:
     """Candidates a block keeps in its shared-memory heap; a block with more
     keeps the heap in global scratch (CUDA only: builds the kernel)."""
     return build().mcrt_traverse_heap_shared()
+
+
+def pair_width(blocks: int, resident_pairs: int) -> int:
+    """CTAs per ray block of a launch of `blocks` blocks: 2 when every block
+    can run as a two-CTA cluster at once (`resident_pairs` of them fit on the
+    card), else 1. Pairs that had to wait for each other's SMs would add the
+    pair's barriers and buy nothing."""
+    return 2 if blocks <= resident_pairs else 1
+
+
+def resident_pairs(K: int, C: int, Sp: int) -> int:
+    """Two-CTA clusters of the kernel that fit on the current card at once at
+    the shared memory of a launch of this shape (CUDA's occupancy API, queried
+    once per device and size; builds the kernel)."""
+    return build().mcrt_traverse_pairs(K, C, Sp)
 
 
 def ray_features(origin, direction, dtype=torch.float32):
@@ -175,14 +198,18 @@ def traverse(cbvh, origin, direction):
 
 def traverse_cycles(cbvh, origin, direction):
     """The kernel's stamping variant, for measurement only: traverse's outputs
-    plus (B, len(CYCLES)) int64 clock64() cycles per block. Cull runs to the
-    first keys; select (heap build included), load (ids and the TMA issue) and
-    producer_wait are the producer warp's; staging_wait and forms (the rounds)
-    are consumer thread 0's. CUDA tensors only."""
+    plus (CTAs, len(CYCLES)) int64 clock64() cycles per CTA: one row a block,
+    or, in a paired launch, rows 2b and 2b + 1 for block b's leader and peer.
+    Cull runs to the first keys; select (heap build included), load (ids and
+    the TMA issues) and producer_wait are the producer warp's (the leader's: a
+    peer's read 0); staging_wait and forms (the rounds) are consumer thread
+    0's. CUDA tensors only."""
     return _launch(cbvh, origin, direction, stamp=True)
 
 
-def _launch(cbvh, origin, direction, stamp):
+def _launch(cbvh, origin, direction, stamp, width=None):
+    """One launch; `width` (1 or 2 CTAs a block) forces the launch shape, for
+    tests, in place of pair_width."""
     if origin.device.type != "cuda":
         raise ValueError(f"traverse: unsupported device {origin.device}")
     for name in ("cl_bb", "rec", "tri"):
@@ -208,19 +235,24 @@ def _launch(cbvh, origin, direction, stamp):
     u = torch.empty((B, K), dtype=f32, device=dev)
     v = torch.empty((B, K), dtype=f32, device=dev)
     stats = torch.empty((B, 2), dtype=i32, device=dev)
-    cycles = torch.zeros((B, len(CYCLES)), dtype=torch.int64, device=dev) if stamp else None
     ptr = lambda x: None if x is None else x.data_ptr()
     with torch.cuda.device(dev):
+        if width is None:
+            width = pair_width(B, resident_pairs(K, C, Sp))
+        cycles = (torch.zeros((width * B, len(CYCLES)), dtype=torch.int64, device=dev)
+                  if stamp else None)
         err = lib.mcrt_traverse(
             ft.data_ptr(), cbvh.cl_bb.data_ptr(), cbvh.rec.data_ptr(), cbvh.tri.data_ptr(),
             tn.data_ptr(), cand.data_ptr(), ptr(heap), t.data_ptr(), tid.data_ptr(), u.data_ptr(),
-            v.data_ptr(), stats.data_ptr(), ptr(cycles), B, K, C, Sp,
+            v.data_ptr(), stats.data_ptr(), ptr(cycles), B, K, C, Sp, width,
             torch.cuda.current_stream(dev).cuda_stream)
     if err == _ERR_SMEM:
         raise ValueError(f"traverse: two records of {Sp} triangles do not fit in shared memory")
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: CUDA error {err}")
     kernel.count()
+    if width == 2:
+        paired.count()
     out = (*_unpad(R, t, tid, u, v), stats)
     return (*out, cycles) if stamp else out
 

@@ -40,6 +40,7 @@ from .accel import photon_grid as pgrid
 from .integrator import path_tracer as pt
 from .integrator import photon_mapper as pm
 from .ops import cluster_bvh
+from .ops import traverse_kernel as tk
 from .scene.loader import Scene
 from .utils import trace
 from .utils.device import resolve_device, torch_dtype
@@ -250,9 +251,12 @@ def render(
     (every loop's steps: "bounce_steps" plus, for the photon mapper,
     "emission_steps"), "loop_sync_wait_s" (host seconds blocked on the
     steps' syncs and before the captures) and, on the card,
-    "graph_pool_bytes" (what the captures' pools reserved, summed). Like
-    the other keys they add to what the dict holds. With stats None nothing
-    is recorded and no span reads a clock.
+    "graph_pool_bytes" (what the captures' pools reserved, summed); and the
+    traversal kernel's launches that ran during the render,
+    "traverse_launches", and those of them that ran as two-CTA clusters,
+    "traverse_paired_launches" (both 0 on the CPU, where the plain version
+    runs). Like the other keys they add to what the dict holds. With stats
+    None nothing is recorded and no span reads a clock.
     verbose: print the photon emission and a per-chunk progress line.
     cfg.profile_dir: write a torch.profiler trace of the whole render there,
     set-up, photon pass and spans included.
@@ -261,8 +265,12 @@ def render(
         raise ValueError(f"unknown integrator {cfg.integrator!r}")
     device = resolve_device(device)
     with _profiler(cfg.profile_dir, device), trace.recording(stats), trace.span("render"):
-        return _render(scene, camera_idx, cfg, device, checkpoint_dir, checkpoint_every_s,
-                       {} if stats is None else stats, verbose)
+        launches, paired = tk.kernel.launches, tk.paired.launches
+        image = _render(scene, camera_idx, cfg, device, checkpoint_dir, checkpoint_every_s,
+                        {} if stats is None else stats, verbose)
+        trace.count("traverse_launches", tk.kernel.launches - launches)
+        trace.count("traverse_paired_launches", tk.paired.launches - paired)
+        return image
 
 
 def _render(scene, camera_idx, cfg, device, checkpoint_dir, checkpoint_every_s, stats, verbose):

@@ -85,20 +85,49 @@ def soup_rays(n=512, seed=7):
     return o.astype(np.float32), d.astype(np.float32)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mesh", ["grid32", "grid64", "soup", "soup301"])
-def test_kernel_matches_plain_on_card(mesh):
-    """Bit for bit: ids, t, u, v and per-block stats, on at least two blocks per
-    ray set, and on one block of 100 rays (K = 128: the threads of the missing
-    rays only help with the cull); on the soup every block's heap lives in
-    global scratch; the 301-cluster soup keeps an odd number of heap entries
-    in shared memory."""
+def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode); chip_smoke.py runs it")
+
+
+def _mesh(mesh):
     soup = mesh.startswith("soup")
     (v0, e1, e2), flat = (soup_mesh(int(mesh[4:] or 4600)) if soup else grid_mesh(int(mesh[4:])))
-    cb = convert.cluster_bvh_from_numpy(flat.bb_min, flat.bb_max, flat.first, flat.count,
-                                        flat.prim_order, v0, e1, e2, "cuda", np.float32)
+    return convert.cluster_bvh_from_numpy(flat.bb_min, flat.bb_max, flat.first, flat.count,
+                                          flat.prim_order, v0, e1, e2, "cuda", np.float32)
+
+
+def _launch_counted(cb, o, d, width=None, stamp=False):
+    """One launch at `width` (None: the rule's), checked to count one launch,
+    and one paired launch where it ran as pairs; (outputs, paired)."""
+    before, paired = tk.kernel.launches, tk.paired.launches
+    out = tk._launch(cb, o, d, stamp=stamp, width=width)
+    torch.cuda.synchronize()
+    assert tk.kernel.launches == before + 1
+    assert tk.paired.launches - paired in (0, 1)
+    return out, tk.paired.launches - paired == 1
+
+
+def _assert_bitwise(k, p, what):
+    for name, a, b in zip(("t", "tri_id", "u", "v", "stats"), k, p):
+        assert torch.equal(a, b), (what, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2])
+@pytest.mark.parametrize("mesh", ["grid32", "grid64", "soup", "soup301"])
+def test_kernel_matches_plain_on_card(mesh, width):
+    """Bit for bit: ids, t, u, v and per-block stats, one CTA a block (width
+    1) and two-CTA clusters (width 2), on at least two blocks per ray set,
+    whole parked blocks and mixed live and parked blocks included, and on one
+    block of 100 rays (K = 128: the threads of the missing rays only help
+    with the cull); on the soup every block's heap lives in global scratch
+    (in a pair, the peer writes its first keys there too); the 301-cluster
+    soup keeps an odd number of heap entries in shared memory. The stamping
+    variant gives the same outputs and one row of cycles a CTA."""
+    _needs_card()
+    soup = mesh.startswith("soup")
+    cb = _mesh(mesh)
     if mesh == "soup301":
         assert cb.rec.shape[0] == 301
     sets = {"soup": soup_rays()} if soup else {kind: ray_set(kind) for kind in KINDS}
@@ -108,19 +137,46 @@ def test_kernel_matches_plain_on_card(mesh):
         if len(o) < 2 * tk.BLOCK and kind != "few":
             o, d = np.concatenate([o, o]), np.concatenate([d, d])
         o, d = torch.as_tensor(o).cuda(), torch.as_tensor(d).cuda()
-        before = tk.kernel.launches
-        k = tk.traverse(cb, o, d)
-        torch.cuda.synchronize()
-        assert tk.kernel.launches == before + 1
-        p = tk.traverse_plain(cb, o, d)
-        for name, a, b in zip(("t", "tri_id", "u", "v", "stats"), k, p):
-            assert torch.equal(a, b), (kind, name)
+        k, paired = _launch_counted(cb, o, d, width)
+        assert paired == (width == 2)
+        _assert_bitwise(k, tk.traverse_plain(cb, o, d), kind)
         st = k[4]
         assert st.shape[0] == 1 if kind == "few" else st.shape[0] >= 2
         if kind == "parked":
             assert (k[1] == -1).all() and int(st[:, 1].max()) == 0
         if mesh == "soup":
             assert int(st[:, 0].min()) > tk.heap_shared() and bool((st[:, 1] < st[:, 0]).all())
+        if kind in ("camera", "soup"):
+            (*ks, cy), _ = _launch_counted(cb, o, d, width, stamp=True)
+            _assert_bitwise(ks, k, f"{kind} stamped")
+            assert cy.shape == (width * st.shape[0], len(tk.CYCLES)) and bool((cy[:, 0] > 0).all())
+            if width == 2:   # a peer's producer warp does not choose or stage
+                assert int(cy[1::2, 2:5].abs().sum()) == 0 and bool((cy[0::2, 2] > 0).all())
+
+
+@pytest.mark.cuda
+def test_launch_pairs_up_to_the_clusters_the_card_holds_on_card():
+    """The rule pairs a launch of B blocks when B is at most the two-CTA
+    clusters the card holds at once, and not past it: a launch at the limit
+    runs as pairs and one a block past it as single CTAs, each bit for bit
+    with the plain version. A query for a shape of less shared memory (two
+    clusters of four slots) made in between must not refuse the launches."""
+    _needs_card()
+    cb = _mesh("grid64")
+    C, Sp, _ = cb.rec.shape
+    limit = tk.resident_pairs(tk.BLOCK, C, Sp)
+    assert tk.resident_pairs(tk.BLOCK, 2, 4) >= 1
+    assert limit >= 1
+    for blocks in (limit, limit + 1):
+        o, d = ray_set("camera", n=blocks * tk.BLOCK, seed=11)
+        o, d = torch.as_tensor(o).cuda(), torch.as_tensor(d).cuda()
+        before, paired = tk.kernel.launches, tk.paired.launches
+        k = tk.traverse(cb, o, d)
+        torch.cuda.synchronize()
+        assert tk.kernel.launches == before + 1
+        assert tk.paired.launches - paired == (1 if blocks == limit else 0), blocks
+        assert k[4].shape[0] == blocks
+        _assert_bitwise(k, tk.traverse_plain(cb, o, d), blocks)
 
 
 @pytest.mark.cuda
@@ -168,6 +224,16 @@ def test_kernel_route_gradients_match_plain_on_card():
         assert torch.isfinite(g).all() and top > 0.0, name
         for other in (plain[name], again[name]):
             assert float((g - other).abs().max()) <= 1e-4 * top, name
+
+
+@pytest.mark.parametrize("blocks,pairs,width", [
+    (64, 66, 2), (66, 66, 2), (67, 66, 1), (1, 66, 2), (256, 66, 1), (1024, 66, 1),
+    (1, 0, 1), (64, 132, 2), (133, 132, 1),
+])
+def test_pair_width_pairs_only_what_the_card_holds_at_once(blocks, pairs, width):
+    """Two CTAs a block where every block's pair fits on the card at once,
+    one otherwise (and when no pair fits at all)."""
+    assert tk.pair_width(blocks, pairs) == width
 
 
 def test_plain_fma_rounds_once():

@@ -244,6 +244,64 @@ def test_recording_is_per_thread():
 # On the card
 # ---------------------------------------------------------------------------------
 
+@pytest.mark.parametrize("pm", [False, True], ids=["pt", "pm"])
+def test_render_counts_its_traversal_launches(pm):
+    """render() records the traversal kernel's launches that ran during it
+    and those that ran as two-CTA clusters: 0 and 0 on the CPU, where the
+    plain version runs; with a wrapper that counts each call as a launch and
+    every other one as paired, the change of each counter across the render,
+    added to what the dict holds."""
+    from mcrt_tpu_torch.ops import traverse_kernel as tk
+
+    stats = {}
+    mt.render(_scene(pm), 0, _cfg(pm), device="cpu", stats=stats)
+    assert stats["traverse_launches"] == 0 and stats["traverse_paired_launches"] == 0
+    calls = []
+    real = tk.traverse
+
+    def counted(cbvh, origin, direction):
+        calls.append(origin.shape[0])
+        tk.kernel.launches += 1
+        tk.paired.launches += len(calls) % 2
+        return real(cbvh, origin, direction)
+
+    with mock.patch.object(tk, "traverse", counted):
+        mt.render(_scene(pm), 0, _cfg(pm), device="cpu", stats=stats)
+    assert len(calls) > 2
+    assert stats["traverse_launches"] == len(calls)
+    assert stats["traverse_paired_launches"] == (len(calls) + 1) // 2
+
+
+@pytest.mark.parametrize("pm,streamed", CASES, ids=IDS)
+def test_render_frees_its_tables_when_it_returns(pm, streamed):
+    """Nothing a render builds keeps its tables alive once it has returned,
+    with the garbage collector off: no reference cycle holds them (on the
+    card a cycle kept each image's tables until a full collection, so a
+    window's peak memory grew with its image count)."""
+    import gc
+    import weakref
+
+    from mcrt_tpu_torch.scene import loader
+
+    refs = []
+    real = loader.Scene.tables
+
+    def tables(self, *a, **k):
+        t = real(self, *a, **k)
+        refs.extend(weakref.ref(x) for x in t if isinstance(x, torch.Tensor))
+        return t
+
+    scene = _scene(pm)
+    gc.collect()
+    gc.disable()
+    try:
+        with mock.patch.object(loader.Scene, "tables", tables):
+            mt.render(scene, 0, _cfg(pm, streamed), device="cpu", stats={})
+        assert refs and not any(r() is not None for r in refs)
+    finally:
+        gc.enable()
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (CUDA graphs and the kernels have no CPU mode)")
@@ -286,6 +344,8 @@ def test_capture_counters_on_card(pm):
     assert spans["loop.warm"][0] == len(pools)
     assert stats["loop_steps"] - spans["loop.warm"][0] == len(replays)
     assert 0.0 < stats["loop_sync_wait_s"]
+    # 256 lanes are one ray block a launch: every launch runs as a pair.
+    assert stats["traverse_launches"] == stats["traverse_paired_launches"] > 0
 
 
 @pytest.mark.cuda
