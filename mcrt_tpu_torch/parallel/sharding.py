@@ -32,6 +32,8 @@ from ..camera import camera as cam_mod
 from ..camera import film as film_mod
 from ..integrator import path_tracer as pt
 from ..ops import cluster_bvh
+from ..ops import traverse_kernel as tk
+from ..utils import trace
 from ..utils.device import resolve_device, torch_dtype
 
 # Material tables a training step differentiates by default: the JAX
@@ -110,24 +112,39 @@ def _local_film(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype, device
     captured at the first call and replayed by the later ones of the same
     shapes, which copy their tables in (`graphs`: the forward trace's
     path_tracer.BatchTrace, the differentiable trace's trips, see
-    path_tracer._run_trips)."""
+    path_tracer._run_trips). The two halves are `film.prepare(tables, cbvh,
+    px, py, si) -> (intersect_fn, rays)` and `film.render(tables,
+    intersect_fn, rays) -> film`."""
     consts = cam_mod.camera_consts(cam, dtype, device)
     graphs = {}
 
-    def film(tables, cbvh, px, py, si):
+    def prepare(tables, cbvh, px, py, si):
         lo, per = shard(px.shape[0], mesh.rank, mesh.size)
         on = lambda x: torch.as_tensor(x[lo:lo + per], device=device)
         intersect_fn = (None if cbvh is None
                         else cluster_bvh.make_intersect_fn(tables, meta, cbvh, tree=tree))
         rays = cam_mod.generate_rays(cam, on(px), on(py), on(si), cfg.global_seed, dtype,
                                      consts=consts)
+        return intersect_fn, rays
+
+    def render(tables, intersect_fn, rays):
         radiance = pt.trace(tables, meta, cfg, rays.origin, rays.direction, rays.pixel_index,
                             rays.sample_index, intersect_fn=intersect_fn,
                             differentiable=differentiable, graphs=graphs)
         return film_mod.splat(film_cfg, rays.px, radiance)
 
-    film.graphs = graphs
+    def film(tables, cbvh, px, py, si):
+        return render(tables, *prepare(tables, cbvh, px, py, si))
+
+    film.prepare, film.render, film.graphs = prepare, render, graphs
     return film
+
+
+def _trip_replays(graphs) -> tuple[int, int]:
+    """The replays of G_f and of G_b that the GraphedTrips in `graphs` (a
+    differentiable film's) have run."""
+    return (sum(g.replays[0] for g in graphs.values()),
+            sum(g.replays[1] for g in graphs.values()))
 
 
 def sharded_render_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype,
@@ -163,7 +180,8 @@ def sharded_render_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype
 def sharded_train_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype,
                        with_bvh: bool = False, device=None, tree=None):
     """Differentiable render step: returns fn(tables[, cbvh], params, px, py,
-    si, target) -> (loss, grads), cbvh present exactly when `with_bvh`.
+    si, target, stats=None) -> (loss, grads), cbvh present exactly when
+    `with_bvh`.
 
     `params` is a dict of material tables, any subset of SceneTables' mat_*
     fields (e.g. {k: getattr(tables, k) for k in DEFAULT_TRAIN_PARAMS}), and
@@ -177,27 +195,51 @@ def sharded_train_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype,
     (path_tracer._run_trips): the first call captures, later calls replay.
     tree: as sharded_render_step's (trips that traverse best-first run
     eagerly under checkpoint, and capture nothing).
-    device: None is the CUDA device (raise without one); "cpu" on request."""
+    device: None is the CUDA device (raise without one); "cpu" on request.
+
+    stats: if a dict, the step records into it (utils/trace) the spans
+    `train.step` (the whole call) and, inside it, `train.params` (the tables
+    with the params in, the intersect closure, the camera rays),
+    `train.forward` (the trips, the splat, the scan and the loss) and
+    `train.backward` (`torch.autograd.grad` and the gradients' assembly),
+    and the counters "trip_forward_replays" and "trip_backward_replays"
+    (the replays of the trips' G_f and G_b in the call, utils/cuda_graph;
+    counted here, since the backward's replays run on autograd's thread)
+    and "traverse_launches" (the traversal kernel's launches that ran in
+    the call), added to what the dict holds. With None nothing is recorded."""
     device = resolve_device(device)
     dtype = torch_dtype(dtype)
     local = _local_film(meta, cfg, cam, film_cfg, mesh, dtype, device, differentiable=True,
                         tree=tree)
 
-    def value_and_grad(tables, cbvh, params, px, py, si, target):
-        named = params if isinstance(params, dict) else {"mat_reflectance": params}
-        leaves = {k: v.detach().requires_grad_() for k, v in named.items()}
-        img = film_mod.scan(_summed(mesh, local(tables._replace(**leaves), cbvh, px, py, si)))
-        loss = torch.mean((img - torch.as_tensor(target, dtype=dtype, device=device)) ** 2)
-        got = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves.values(), got)]
-        if mesh.group is not None:   # one all-reduce for every table
-            flat = _all_reduce(mesh, torch.cat([g.reshape(-1) for g in grads]))
-            grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
-        grads = dict(zip(leaves, grads))
+    def value_and_grad(tables, cbvh, params, px, py, si, target, stats=None):
+        with trace.recording(stats), trace.span("train.step"):
+            launches, replays = tk.kernel.launches, _trip_replays(local.graphs)
+            with trace.span("train.params"):
+                named = params if isinstance(params, dict) else {"mat_reflectance": params}
+                leaves = {k: v.detach().requires_grad_() for k, v in named.items()}
+                traced = tables._replace(**leaves)
+                intersect_fn, rays = local.prepare(traced, cbvh, px, py, si)
+            with trace.span("train.forward"):
+                img = film_mod.scan(_summed(mesh, local.render(traced, intersect_fn, rays)))
+                loss = torch.mean((img - torch.as_tensor(target, dtype=dtype, device=device)) ** 2)
+            with trace.span("train.backward"):
+                got = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(leaves.values(), got)]
+                if mesh.group is not None:   # one all-reduce for every table
+                    flat = _all_reduce(mesh, torch.cat([g.reshape(-1) for g in grads]))
+                    grads = [f.view_as(g)
+                             for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+                grads = dict(zip(leaves, grads))
+            after = _trip_replays(local.graphs)
+            trace.count("trip_forward_replays", after[0] - replays[0])
+            trace.count("trip_backward_replays", after[1] - replays[1])
+            trace.count("traverse_launches", tk.kernel.launches - launches)
         return loss.detach(), grads if isinstance(params, dict) else grads["mat_reflectance"]
 
-    fn = value_and_grad if with_bvh else lambda tables, params, px, py, si, target: \
-        value_and_grad(tables, None, params, px, py, si, target)
+    fn = value_and_grad if with_bvh else lambda tables, params, px, py, si, target, stats=None: \
+        value_and_grad(tables, None, params, px, py, si, target, stats)
     fn.graphs = local.graphs
     return fn
 
@@ -221,7 +263,8 @@ def train_step(meta, cfg: pt.PTConfig, cam, film_cfg, dtype, with_bvh: bool = Fa
                device=None, tree=None):
     """The train step on one device: `sharded_train_step` over a world of one
     with no process group. Returns fn(tables[, cbvh], params, px, py, si,
-    target) -> (loss, grads), cbvh present exactly when `with_bvh`.
+    target, stats=None) -> (loss, grads), cbvh present exactly when
+    `with_bvh`; `stats` as sharded_train_step's.
     tree: as sharded_render_step's.
     device: None is the CUDA device (raise without one); "cpu" on request."""
     return sharded_train_step(meta, cfg, cam, film_cfg, LOCAL, dtype, with_bvh, device, tree)

@@ -271,9 +271,13 @@ class GraphedTrip:
     where the replays would (`cuda` is False). `pool_bytes` is what the
     captures reserved; `per_replay` is [(counter, launches a replay runs)]
     for G_f and for G_b. `step_calls` counts the Python step's calls: one
-    eagerly and one in each capture on the card, and none after. The two
-    captures are one span `loop.capture`, after the wait for the queued work
-    (`wait_for_device`), and count their `graph_pool_bytes`."""
+    eagerly and one in each capture on the card, and none after. `replays`
+    counts the replays of G_f and of G_b (on the CPU, the bodies run in
+    their place); a caller reads it around a call, since autograd runs
+    the backward's replays on a thread of its own, which a recording
+    (utils/trace) does not reach. The two captures are one span
+    `loop.capture`, after the wait for the queued work (`wait_for_device`),
+    and count their `graph_pool_bytes`."""
 
     def __init__(self, step, state):
         tensors, self.pattern, self.spec = _distinct_tensors(step.leaves)
@@ -293,6 +297,7 @@ class GraphedTrip:
         self.pool_bytes = 0
         self.per_replay = ([], [])
         self.step_calls = 0
+        self.replays = [0, 0]      # G_f, G_b
 
     @staticmethod
     def key(step, state):
@@ -385,6 +390,7 @@ class GraphedTrip:
     def replay_f(self):
         """G_f from the static state. On the CPU the step's body, its
         outputs copied into static buffers as a replay leaves them."""
+        self.replays[0] += 1
         if self.cuda:
             self._replay(0)
         else:
@@ -393,6 +399,7 @@ class GraphedTrip:
 
     def replay_b(self):
         """G_b from the static state and cotangents; on the CPU as replay_f."""
+        self.replays[1] += 1
         if self.cuda:
             self._replay(1)
             return
