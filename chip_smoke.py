@@ -197,20 +197,19 @@ Phases (each prints its own lines; any failed check exits non-zero):
               their bounds; the eye pass's captured caustic and global k-NN calls
               after replay 1 held to knn_plain bit for bit and timed; a profiled
               graphed render of each, for the device-busy share
-  13. methods  the JAX package's own traversal formulations, and float64 on the card:
-              a. cluster_bvh.traverse by "walk" and "bestfirst" (the float32 cluster
-                 tree, row gathers: 5536 clusters) against "kernel" on phase 3's
-                 camera, surface and shadow rays (16384 each, sorted) and its mixed
-                 set: ids identical to the kernel's on at least 99.9% of rays (its
-                 fmaf chains split shared edges differently), parked rays missing;
-                 each method's t, u, v against the float64 recompute of its
-                 winning triangles (refine_tri_hit), walk's and best-first's
-                 within 5e-6 of t + |o| and 5e-3 (the kernel's global-frame forms
-                 are reported: they lose more at grazing incidence); each
-                 method's ms a call, stats and peak memory. Then best-first on a
-                 displaced grid of under 2048 clusters, its one-hot gather (three
-                 bf16 products) against its row gather, bit for bit
-              b. float64 on the card, which traverses best-first with every loop
+  13. methods  the JAX package's best-first traversal, and float64 on the card:
+              a. cluster_bvh.traverse of a float32 ClusterTree (best-first, row
+                 gathers: 5536 clusters) against that of the ClusterBVH (the
+                 kernel) on phase 3's camera, surface and shadow rays (16384 each,
+                 sorted) and its mixed set: ids identical to the kernel's on at
+                 least 99.9% of rays (its fmaf chains split shared edges
+                 differently), parked rays missing; each route's t, u, v against
+                 the float64 recompute of its winning triangles (refine_tri_hit),
+                 best-first's within 5e-6 of t + |o| and 5e-3 (the kernel's
+                 global-frame forms are reported: they lose more at grazing
+                 incidence); each route's ms a call, stats and peak memory
+              b. float64 on the card, whose BVH carries its ClusterTree and which
+                 traverses best-first with every loop
                  step eager (stats["graphed"] False, no kernel launch): render() at
                  512x512, 1 spp, 64 bounces, held to the float32 kernel render with
                  phase 5's bars; a 16x16 camera at 1 spp, 8 bounces (cut from 64x64
@@ -305,14 +304,12 @@ BWD_TURN_REPS = 1           # 11a's child: chunks of the bench's forward+backwar
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "fwd_bwd_rays_per_s_1024spp",
               "fwd_bwd_chunk", "diag_walk_steps_32k", "diag_leaf_rounds_32k", "card"}
 SWITCH_WIDTH = 64
-# Phase 13: the JAX package's own traversal formulations (walk, best-first)
-# against the kernel on phase 3's ray sets at the main path's launch size, the
-# one-hot gather on a displaced grid of 2 ONEHOT_GRID_N^2 triangles (under 2048
-# clusters), and float64 on the card: render() at 512x512, 1 spp, 64 bounces;
+# Phase 13: the JAX package's best-first traversal against the kernel on phase
+# 3's ray sets at the main path's launch size, and float64 on the card:
+# render() at 512x512, 1 spp, 64 bounces;
 # a F64_CHECK_WIDTH^2 camera at 1 spp, CHECK_GRAD_BOUNCES bounces, rendered and
 # trained on the card and on the CPU; KNN64_QUERIES float64 exact k-NN queries
 # of phase 6's maps on the card and on the CPU.
-ONEHOT_GRID_N = 200
 F64_CHECK_WIDTH = 16    # cut from 64: on the H100 host the CPU half took 106 s at 32
 KNN64_QUERIES = 1 << 12
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -2736,8 +2733,8 @@ def traversal_row(out):
 
 def timed_call(fn):
     """(output, ms, peak MiB above what was allocated before) of one call of
-    `fn` on the card, its wall between two synchronisations (the walk and
-    best-first formulations read the host between their kernels)."""
+    `fn` on the card, its wall between two synchronisations (best-first
+    reads the host between its kernels)."""
     import torch
 
     torch.cuda.synchronize()
@@ -2751,67 +2748,60 @@ def timed_call(fn):
 
 
 def methods_phase(scene, cbvh, card, launch_sets, pm_dir):
-    """Phase 13: the JAX package's own traversal formulations on the card (13a)
-    and float64 there (13b). Returns the phase's wall in seconds."""
-    from types import SimpleNamespace
-
+    """Phase 13: the JAX package's best-first traversal on the card (13a) and
+    float64 there (13b). Returns the phase's wall in seconds."""
     import numpy as np
     import torch
 
     import mcrt_tpu_torch as mt
     from mcrt_tpu_torch.accel import knn_kernel as kk
     from mcrt_tpu_torch.accel import photon_grid as pg
-    from mcrt_tpu_torch.accel.bvh_build import build_bvh
     from mcrt_tpu_torch.camera import film as film_mod
     from mcrt_tpu_torch.camera import image as image_mod
     from mcrt_tpu_torch.integrator import path_tracer as pt
     from mcrt_tpu_torch.ops import cluster_bvh
     from mcrt_tpu_torch.ops import traverse_kernel as tk
     from mcrt_tpu_torch.parallel import sharding
-    from mcrt_tpu_torch.scene.synthetic import make_displaced_grid
 
     t_phase = time.perf_counter()
     dev = cbvh.rec.device
     C = cbvh.rec.shape[0]
 
-    # ---- 13a: three formulations of the closest hit, float32 ----
+    # ---- 13a: the two routes of the closest hit, float32 ----
     from mcrt_tpu_torch.ops import intersect as isect
     meta = scene.meta()
     tables64 = scene.tables(np.float64, dev)
     geo64 = isect.build_geo_pack(tables64)
     t0 = time.perf_counter()
-    tree = scene.build_cluster_tree(np.float32, dev)
+    tree = cluster_bvh.upload_cluster_tree(scene.build_flat_bvh(np.float32), scene, np.float32, dev)
     torch.cuda.synchronize()
-    tree_mib = sum(x.numel() * x.element_size() for x in tree if x is not None) / 2**20
-    log("methods", f"float32 cluster tree: {tree.skip.shape[0]} nodes, C={tree.tri_id.shape[0]} "
-        f"clusters of S={tree.tri_id.shape[1]}, {tree_mib:.1f} MiB, built in "
-        f"{time.perf_counter() - t0:.2f} s; one-hot tables: {tree.val0 is not None} "
-        f"(C > {cluster_bvh._ONEHOT_MAX_CLUSTERS}: the best-first gathers rows)")
-    check(tree.tri_id.shape[0] == C and tree.val0 is None, "methods",
-          "the tree's clusters are not the kernel's, or carry one-hot tables over 2048 clusters")
+    tree_mib = sum(x.numel() * x.element_size() for x in tree) / 2**20
+    log("methods", f"float32 cluster tree: C={tree.tri_id.shape[0]} clusters of "
+        f"S={tree.tri_id.shape[1]}, {tree_mib:.1f} MiB, built in {time.perf_counter() - t0:.2f} s")
+    check(tree.tri_id.shape[0] == C and cbvh.tree is None, "methods",
+          "the tree's clusters are not the kernel's, or the float32 BVH carries a tree")
     for name in ("camera", "surface", "shadow", "mixed"):
         o, d = launch_sets[name]
         outs = {}
-        for method in ("kernel", "walk", "bestfirst"):
+        for method in ("kernel", "bestfirst"):
             tables = cbvh if method == "kernel" else tree
-            call = lambda: cluster_bvh.traverse(tables, o, d, method=method)
+            call = lambda: cluster_bvh.traverse(tables, o, d)
             before = tk.kernel.launches
             out, ms, peak = timed_call(call)
             check((tk.kernel.launches > before) == (method == "kernel"), "methods",
                   f"{name} {method}: the kernel was launched {tk.kernel.launches - before} times")
-            if method != "walk":   # the walk's one call is its time (seconds a call)
-                ms = min(timed_call(call)[1] for _ in range(2))
+            ms = min(timed_call(call)[1] for _ in range(2))
             outs[method] = out
             log("methods", f"13a {name:8s} {o.shape[0]} rays {method:9s}: {ms:10.3f} ms a call, "
                 f"{traversal_row(out)}, peak {peak:.1f} MiB above the inputs | {card}")
         kid = outs["kernel"][1]
-        # Every method's t, u, v against the float64 recompute of its winning
+        # Each route's t, u, v against the float64 recompute of its winning
         # triangle (refine_tri_hit over float64 tables): their float32 forms
         # lose precision at grazing incidence and on short hits, the kernel's
         # global-frame forms most (phase 3 holds it to its plain version).
         o64, d64 = o.double(), d.double()
         scale = o64.norm(dim=1)
-        for method in ("kernel", "walk", "bestfirst"):
+        for method in ("kernel", "bestfirst"):
             t, tid, u, v, _ = outs[method]
             ex_t, ex_uv = isect.refine_tri_hit(tables64, meta, o64, d64, t.double(), tid,
                                                torch.stack([u, v], 1).double(), geo=geo64)
@@ -2833,39 +2823,6 @@ def methods_phase(scene, cbvh, card, launch_sets, pm_dir):
             for method, out in outs.items():
                 check(bool((out[1][::2] == -1).all()), "methods", f"{method}: parked rays hit")
     del tree, outs
-
-    # The one-hot gather, on a displaced grid of at most 2048 clusters.
-    v0, e1, e2 = make_displaced_grid(ONEHOT_GRID_N)
-    mins = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
-    maxs = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
-    flat = build_bvh(mins, maxs, kind="binary_sah", max_leaf=128, dtype=np.float32, strict_leaf=True)
-    small = cluster_bvh.upload_cluster_tree(flat, SimpleNamespace(tri_v0=v0, tri_e1=e1, tri_e2=e2),
-                                            np.float32, dev)
-    Cs = small.tri_id.shape[0]
-    check(small.val0 is not None and Cs <= cluster_bvh._ONEHOT_MAX_CLUSTERS, "methods",
-          f"the {2 * ONEHOT_GRID_N ** 2}-triangle grid has no one-hot tables ({Cs} clusters)")
-    rng = np.random.default_rng(13)
-    n = launch_sets["camera"][0].shape[0]
-    dd = np.concatenate([rng.uniform(-0.7, 0.7, (n, 2)), -np.ones((n, 1))], 1)
-    d = torch.as_tensor(dd / np.linalg.norm(dd, axis=1, keepdims=True), dtype=torch.float32,
-                        device=dev)
-    o = torch.tensor([[5.0, 5.0, 6.0]], device=dev).expand(n, 3).contiguous()
-    perm = torch.argsort(cluster_bvh.coherence_key(o, d, small.bb_min[0], small.bb_max[0]), stable=True)
-    o, d = o[perm].contiguous(), d[perm].contiguous()
-    rows = small._replace(val0=None, val1=None, val2=None)
-    call_oh = lambda: cluster_bvh.traverse(small, o, d, method="bestfirst")
-    call_rows = lambda: cluster_bvh.traverse(rows, o, d, method="bestfirst")
-    onehot, _, peak_oh = timed_call(call_oh)
-    plain, _, peak_rows = timed_call(call_rows)
-    ms_oh = min(timed_call(call_oh)[1] for _ in range(2))
-    ms_rows = min(timed_call(call_rows)[1] for _ in range(2))
-    same = all(torch.equal(a, b) for a, b in zip(onehot, plain))
-    log("methods", f"13a one-hot gather on a {2 * ONEHOT_GRID_N ** 2}-triangle grid ({Cs} clusters), "
-        f"{n} camera rays: {traversal_row(onehot)}; bit for bit the row gather's: {same}; "
-        f"{ms_oh:.3f} ms a call (peak {peak_oh:.1f} MiB) against {ms_rows:.3f} ms ({peak_rows:.1f} "
-        f"MiB) for the row gather | {card}")
-    check(same, "methods", "the one-hot gather and the row gather differ")
-    del small, rows, onehot, plain
     t13a = time.perf_counter() - t_phase
     log("methods", f"13a took {t13a:.1f} s | {card}")
 
@@ -2878,9 +2835,9 @@ def methods_phase(scene, cbvh, card, launch_sets, pm_dir):
     st32, st64 = {}, {}
     img32 = mt.render(scene, 0, cfg32, stats=st32)
     t0 = time.perf_counter()
-    scene.build_cluster_bvh(np.float64, dev)
-    scene.build_cluster_tree(np.float64, dev)
+    cb64 = scene.build_cluster_bvh(np.float64, dev)
     torch.cuda.synchronize()
+    check(cb64.tree is not None, "methods", "the float64 BVH on the card carries no ClusterTree")
     t_tables = time.perf_counter() - t0
     tk.kernel.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2927,10 +2884,9 @@ def methods_phase(scene, cbvh, card, launch_sets, pm_dir):
         check(st["graphed"] is False, "methods", f"the 64x64 float64 render on {where} captured a step")
         tables = scene.tables(np.float64, on)
         cb = scene.build_cluster_bvh(np.float64, on)
-        tree = scene.build_cluster_tree(np.float64, on) if where == "cuda" else None
         step = sharding.train_step(scene.meta(), pt.PTConfig(max_bounces=CHECK_GRAD_BOUNCES), cam,
                                    film_mod.FilmConfig.from_json(cam.width, cam.height, cam.film),
-                                   torch.float64, with_bvh=True, device=on, tree=tree)
+                                   torch.float64, with_bvh=True, device=on)
         params = {k: getattr(tables, k) for k in sharding.DEFAULT_TRAIN_PARAMS}
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
@@ -2961,7 +2917,7 @@ def methods_phase(scene, cbvh, card, launch_sets, pm_dir):
     # on the card (no kernel), against the CPU.
     t0 = time.perf_counter()
     k = PHOTON_MAP["k_nearest_photons"]
-    q, _ = surface_rays(scene, KNN64_QUERIES, rng)
+    q, _ = surface_rays(scene, KNN64_QUERIES, np.random.default_rng(13))
     for name in ("caustic", "global"):
         (path,) = pathlib.Path(pm_dir).glob(f"photons_{name}_*.npz")
         res = {}
@@ -3240,7 +3196,7 @@ def main() -> int:
     log("done", f"phase 12 took {time.perf_counter() - t12:.1f} s, the whole run "
         f"{time.perf_counter() - t_start:.1f} s | {card}")
 
-    # ---- 13. the JAX package's traversal formulations, and float64 on the card ----
+    # ---- 13. the JAX package's best-first traversal, and float64 on the card ----
     t13 = methods_phase(scene, cbvh, card, launch_sets, pm_dir)
     pm_tmp.cleanup()
     log("done", f"phase 13 took {t13:.1f} s, the whole run {time.perf_counter() - t_start:.1f} s "

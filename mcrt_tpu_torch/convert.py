@@ -12,8 +12,7 @@ import numpy as np
 import torch
 
 from .accel.photon_grid import PhotonGrid, PhotonGridArrays
-from .ops.cluster_bvh import (_ONEHOT_MAX_CLUSTERS, ClusterBVH, ClusterTree, cluster_tables_numpy,
-                               onehot_split)
+from .ops.cluster_bvh import ClusterBVH, ClusterTree, cluster_tables_numpy
 from .scene.loader import SceneTables
 from .utils.device import resolve_device, torch_dtype
 
@@ -60,27 +59,18 @@ def cluster_bvh_from_numpy(bb_min, bb_max, first, count, prim_order, tri_v0, tri
     )
 
 
-def cluster_tree_from_numpy(bb_min, bb_max, skip, node_cluster, feat, tri_id, center, cl_bb_min,
-                            cl_bb_max, device=None, dtype=np.float32) -> ClusterTree:
+def cluster_tree_from_numpy(feat, tri_id, center, cl_bb_min, cl_bb_max, device=None,
+                            dtype=np.float32) -> ClusterTree:
     """ClusterTree from the JAX package's ClusterBVH fields of the same names
-    (or the port's cluster_tree_numpy): node AABBs, skip links and leaf
-    clusters, the per-cluster forms, triangle ids and centers, and the
-    cluster AABBs. Floating tables become `dtype`, the links int64 and the
-    ids int32; float32 tables of at most _ONEHOT_MAX_CLUSTERS clusters also
-    get the bf16 split for the one-hot gather (ClusterTree.val0/1/2)."""
+    (or the port's cluster_tree_numpy): the per-cluster forms, triangle ids
+    and centers, and the cluster AABBs. Floating tables become `dtype`, the
+    ids int32."""
     device = resolve_device(device)
     fdt = torch_dtype(dtype)
     f = lambda x: torch.as_tensor(np.array(x, np.float64), device=device).to(fdt)
-    i = lambda x, dt: torch.as_tensor(np.asarray(x).astype(dt), device=device)
-    tree = ClusterTree(
-        bb_min=f(bb_min), bb_max=f(bb_max), skip=i(skip, np.int64),
-        node_cluster=i(node_cluster, np.int64), feat=f(feat), tri_id=i(tri_id, np.int32),
-        center=f(center), cl_bb_min=f(cl_bb_min), cl_bb_max=f(cl_bb_max),
-        val0=None, val1=None, val2=None)
-    if fdt == torch.float32 and tree.feat.shape[0] <= _ONEHOT_MAX_CLUSTERS:
-        tree = tree._replace(**dict(zip(("val0", "val1", "val2"),
-                                        onehot_split(tree.feat, tree.tri_id, tree.center))))
-    return tree
+    ids = torch.as_tensor(np.asarray(tri_id).astype(np.int32), device=device)
+    return ClusterTree(feat=f(feat), tri_id=ids, center=f(center), cl_bb_min=f(cl_bb_min),
+                       cl_bb_max=f(cl_bb_max))
 
 
 def photon_grid_from_numpy(pos, direction, flux, cell_start, bb_min, cell_size, dims, m_per_cell,

@@ -446,7 +446,7 @@ def _run_trips(step, st, trips: int, remat: bool, graphs: dict | None = None):
     on the card through a GraphedTrip, found in `graphs` by its key or
     captured and kept there (None: kept for this call alone); elsewhere,
     without remat, and for a step that is not capturable (its intersect
-    reads the host: walk or best-first), eagerly, each trip under
+    reads the host: best-first), eagerly, each trip under
     torch.utils.checkpoint when `remat`."""
     if remat and trips and _graph_trips(st.origin.device) and getattr(step, "capturable", True):
         graphs = {} if graphs is None else graphs
@@ -495,7 +495,7 @@ def trace(
     checkpoints every step, so the backward pass stores one PathState per
     bounce and recomputes the rest; on the card each step replays captured
     graphs, kept in `graphs` for later calls of the same shapes (see
-    _run_trips). An intersect that is not capturable (walk, best-first)
+    _run_trips). An intersect that is not capturable (best-first)
     runs every step eagerly, on the card too."""
     if intersect_fn is None:
         intersect_fn = isect.make_brute_fn(tables, meta)
@@ -597,8 +597,8 @@ class StreamedTrace(cuda_graph.GraphedLoop):
     the second captures one bounce step over those buffers as a CUDA graph
     (utils/cuda_graph.GraphedLoop, CapturedStep); from then on, in this chunk
     and the later ones, a bounce is one replay. A capture that fails raises. On
-    the CPU, and on the card when the intersect is not capturable (walk,
-    best-first: `graphed` is then False), every bounce calls the step
+    the CPU, and on the card when the intersect is not capturable
+    (best-first: `graphed` is then False), every bounce calls the step
     eagerly. `close()` releases the graph and its pool.
 
     begin(start) and advance() are the same run one bounce at a time, and

@@ -26,7 +26,7 @@ the jitted streamed and batch eye passes) are `_EmissionRun`,
 chunk-dependent inputs ride in the state, so on the card it is captured once
 as a CUDA graph and replayed for every later step of every chunk
 (utils/cuda_graph.GraphedLoop), unless the intersect is not capturable (the
-walk and best-first traversals, which float64 tables take on the card): then
+best-first traversal, which float64 tables take on the card): then
 every step runs eagerly.
 """
 from __future__ import annotations

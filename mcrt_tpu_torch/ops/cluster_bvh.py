@@ -12,26 +12,26 @@ triangles' Moller-Trumbore bilinear forms
 so a ray meets a whole cluster with a few dot products per triangle, or a
 (K, 10) @ (10, 4S) product for a block of K rays.
 
-Three formulations of the closest hit, as in the JAX package (`traverse`'s
-`method`):
+Two formulations of the closest hit, one per table format; `traverse`
+dispatches on the tables' type:
 
-- "kernel" (the JAX package's "pallas"): cull every cluster AABB, then
+- `ClusterBVH`, the kernel's five tables: cull every cluster AABB, then
   best-first rounds with exact per-ray pruning, in ops/traverse_kernel.py: a
   CUDA kernel for tensors on the card, its plain PyTorch version for tensors
-  on the CPU. It reads `ClusterBVH`, the kernel's five tables.
-- "walk" (`traverse_walk`): blocks of rays walk the cluster tree in lockstep
-  by its skip links and intersect each leaf they reach.
-- "bestfirst" (`traverse_bestfirst`): an exact cull of every (ray, cluster)
-  tiled over the clusters, the candidates sorted by entry bound, then rounds
-  of G clusters per block, each gathered by an exact one-hot product of
-  three bf16 tables (C <= 2048, float32) or by a plain row gather.
+  on the CPU: the JAX package's Pallas kernel route.
+- `ClusterTree`, the JAX package's dense cluster tables (`traverse_bestfirst`):
+  an exact cull of every (ray, cluster) tiled over the clusters, the
+  candidates sorted by entry bound, then rounds of G clusters per block,
+  each gathered by rows.
 
-Walk and best-first read `ClusterTree`, the JAX package's tree and dense
-cluster tables, which are built only on request (`upload_cluster_tree`).
-Their loops end on a condition of the data that the host reads, so an
-intersect through them cannot be captured into a CUDA graph: the
-closure's `capturable` says so, and the integrators' loops then run their
-steps eagerly on the card.
+The tables choose the route, once, where they are built: `upload_cluster_bvh`
+attaches a `ClusterTree` to the `ClusterBVH` where `takes_bestfirst` says so
+(float64 tables on the card, which the kernel does not take), and
+`make_intersect_fn` traverses best-first exactly when the BVH carries one.
+Best-first's loop ends on a condition of the data that the host reads, so an
+intersect through it cannot be captured into a CUDA graph: the closure's
+`capturable` says so, and the integrators' loops then run their steps
+eagerly on the card.
 
 `make_intersect_fn` wraps a formulation the way the JAX package does:
 coherence sort of the rays, traversal, unsort, `refine_tri_hit` of the
@@ -56,12 +56,16 @@ from .intersect import Hit, build_geo_pack, intersect_quadrics_block, intersect_
 REC_W = 20
 
 
-METHODS = ("walk", "bestfirst", "kernel")
-# Cluster-count ceiling of the one-hot gather tables (the JAX package's rule,
-# mcrt_tpu/ops/cluster_bvh.py:67); larger scenes gather rows.
-_ONEHOT_MAX_CLUSTERS = 2048
-# Masked walk steps the host issues between two reads of the walk's condition.
-WALK_STEPS_PER_SYNC = 8
+class ClusterTree(NamedTuple):
+    """The JAX package's dense cluster tables (fields of its ClusterBVH),
+    which best-first reads. A ClusterBVH carries one in its `tree` field,
+    which make_intersect_fn keeps out of its closure's leaves, so that no
+    graph's static leaves copy it (`feat` alone is C x 40S values)."""
+    feat: torch.Tensor           # (C, 10, 4S) per-triangle forms, cluster-local
+    tri_id: torch.Tensor         # (C, S) int32 original triangle id, -1 padding
+    center: torch.Tensor         # (C, 3) cluster centroid (the forms' origin)
+    cl_bb_min: torch.Tensor      # (C, 3) cluster AABBs
+    cl_bb_max: torch.Tensor      # (C, 3)
 
 
 class ClusterBVH(NamedTuple):
@@ -71,27 +75,7 @@ class ClusterBVH(NamedTuple):
     tri: torch.Tensor     # (C, Sp) int32 original triangle ids, -1 padding
     bb_lo: torch.Tensor   # (3,) root AABB (coherence sort key), table dtype
     bb_hi: torch.Tensor   # (3,)
-
-
-class ClusterTree(NamedTuple):
-    """The JAX package's ClusterBVH tables that the walk and best-first
-    formulations read. Kept apart from ClusterBVH, so that no graph's static
-    leaves copy them (`feat` alone is C x 40S values)."""
-    bb_min: torch.Tensor         # (N, 3) node AABBs (DFS order with skip links)
-    bb_max: torch.Tensor         # (N, 3)
-    skip: torch.Tensor           # (N,) int64 next node when a subtree is skipped
-    node_cluster: torch.Tensor   # (N,) int64 cluster id of a leaf, -1 internal
-    feat: torch.Tensor           # (C, 10, 4S) per-triangle forms, cluster-local
-    tri_id: torch.Tensor         # (C, S) int32 original triangle id, -1 padding
-    center: torch.Tensor         # (C, 3) cluster centroid (the forms' origin)
-    cl_bb_min: torch.Tensor      # (C, 3) cluster AABBs
-    cl_bb_max: torch.Tensor      # (C, 3)
-    # Exact three-way bf16 split of [feat | tri_id | center] (C, 40S + S + 3):
-    # val0 + val1 + val2 in float32 is the float32 table, for the best-first
-    # one-hot gather. None for float64 tables and for C > _ONEHOT_MAX_CLUSTERS.
-    val0: torch.Tensor | None
-    val1: torch.Tensor | None
-    val2: torch.Tensor | None
+    tree: ClusterTree | None = None   # the best-first route's tables where they take it
 
 
 def build_cluster_features(v0, e1, e2, dtype=np.float32):
@@ -187,51 +171,45 @@ def cluster_tables_numpy(bb_min, bb_max, first, count, prim_order, tri_v0, tri_e
     return build_traversal_tables(feat, tri_id, center, bb_min[leaf_ids], bb_max[leaf_ids], dtype)
 
 
-def cluster_tree_numpy(bb_min, bb_max, skip, first, count, prim_order, tri_v0, tri_e1, tri_e2,
+def cluster_tree_numpy(bb_min, bb_max, first, count, prim_order, tri_v0, tri_e1, tri_e2,
                        dtype=np.float32) -> dict:
-    """Flat fat-leaf BVH arrays + triangle arrays -> ClusterTree's fields but
-    the bf16 split, as numpy (the JAX package's upload_cluster_bvh)."""
+    """Flat fat-leaf BVH arrays + triangle arrays -> ClusterTree's fields as
+    numpy (the JAX package's upload_cluster_bvh)."""
     leaf_ids, feat, tri_id, center = cluster_dense_numpy(
         bb_min, bb_max, first, count, prim_order, tri_v0, tri_e1, tri_e2, dtype)
-    node_cluster = np.full(len(skip), -1, np.int64)
-    node_cluster[leaf_ids] = np.arange(len(leaf_ids))
-    return dict(bb_min=bb_min, bb_max=bb_max, skip=skip, node_cluster=node_cluster, feat=feat,
-                tri_id=tri_id, center=center, cl_bb_min=bb_min[leaf_ids],
+    return dict(feat=feat, tri_id=tri_id, center=center, cl_bb_min=bb_min[leaf_ids],
                 cl_bb_max=bb_max[leaf_ids])
 
 
-def onehot_split(feat, tri_id, center):
-    """The exact three-way bf16 split (val0, val1, val2) of the float32 table
-    [feat | tri_id | center] (C, 40S + S + 3), torch tensors on feat's device:
-    each part is the bf16 rounding (to nearest even) of what the parts before
-    it leave, so the three hold 24 significand bits and their float32 sum is
-    the table."""
-    C = feat.shape[0]
-    val = torch.cat([feat.reshape(C, -1), tri_id.to(torch.float32), center.to(torch.float32)],
-                    dim=1).to(torch.float32)
-    c0 = val.to(torch.bfloat16)
-    r0 = val - c0.to(torch.float32)
-    c1 = r0.to(torch.bfloat16)
-    r1 = r0 - c1.to(torch.float32)
-    return c0, c1, r1.to(torch.bfloat16)
+def takes_bestfirst(device: torch.device, dtype: torch.dtype) -> bool:
+    """The route rule: tables of `dtype` on `device` traverse best-first,
+    and so carry a ClusterTree, where the kernel route does not run: tables
+    other than float32 on the card (the JAX package, too, takes its Pallas
+    kernel for float32 tables only). On the CPU the kernel's plain version
+    serves every dtype."""
+    return device.type == "cuda" and dtype != torch.float32
 
 
 def upload_cluster_bvh(flat, scene, dtype=np.float32, device=None) -> ClusterBVH:
-    """FlatBVH (fat leaves) + host scene triangle data -> ClusterBVH on `device`."""
+    """FlatBVH (fat leaves) + host scene triangle data -> ClusterBVH on
+    `device`, carrying its ClusterTree where `takes_bestfirst` says so."""
     from ..convert import cluster_bvh_from_numpy
 
-    return cluster_bvh_from_numpy(
+    cbvh = cluster_bvh_from_numpy(
         flat.bb_min, flat.bb_max, flat.first, flat.count, flat.prim_order,
         scene.tri_v0, scene.tri_e1, scene.tri_e2, device=device, dtype=dtype)
+    if takes_bestfirst(cbvh.rec.device, cbvh.rec.dtype):
+        cbvh = cbvh._replace(tree=upload_cluster_tree(flat, scene, dtype, cbvh.rec.device))
+    return cbvh
 
 
 def upload_cluster_tree(flat, scene, dtype=np.float32, device=None) -> ClusterTree:
     """FlatBVH (fat leaves) + host scene triangle data -> ClusterTree on
-    `device`, for the walk and best-first formulations."""
+    `device`, for the best-first formulation."""
     from ..convert import cluster_tree_from_numpy
 
     fields = cluster_tree_numpy(
-        np.asarray(flat.bb_min), np.asarray(flat.bb_max), np.asarray(flat.skip),
+        np.asarray(flat.bb_min), np.asarray(flat.bb_max),
         np.asarray(flat.first), np.asarray(flat.count), np.asarray(flat.prim_order),
         np.asarray(scene.tri_v0, np.float64), np.asarray(scene.tri_e1, np.float64),
         np.asarray(scene.tri_e2, np.float64), dtype=np.dtype(dtype).type)
@@ -298,25 +276,6 @@ def _closest(det, udet, vdet, tdet, tri_ok, best_t):
     return u, v, t, torch.where(valid, t, torch.inf)
 
 
-def intersect_cluster(feat_c, tri_id_c, rayF, o, d, best_t, best_id, best_u, best_v):
-    """Dense intersection of (B, K) rays against their block's cluster.
-
-    feat_c: (B, 10, 4S); tri_id_c: (B, S); rayF: (B, K, 10). Updates and
-    returns the per-ray best hit (the first minimum of the cluster, where it
-    is nearer)."""
-    B, K = rayF.shape[:2]
-    S = tri_id_c.shape[-1]
-    out = _forms(rayF, feat_c).reshape(B, K, 4, S)
-    u, v, t, t_m = _closest(out[:, :, 0], out[:, :, 1], out[:, :, 2], out[:, :, 3],
-                            (tri_id_c >= 0)[:, None, :], best_t[..., None])
-    tbest, s = torch.min(t_m, dim=-1)                   # first minimum
-    improved = torch.isfinite(tbest)
-    pick = lambda x: torch.gather(x, -1, s[..., None])[..., 0]
-    win_id = pick(tri_id_c[:, None, :].expand(B, K, S)).to(best_id.dtype)
-    return (torch.where(improved, tbest, best_t), torch.where(improved, win_id, best_id),
-            torch.where(improved, pick(u), best_u), torch.where(improved, pick(v), best_v))
-
-
 def intersect_clusters_multi(feat_c, tri_id_c, rayF, best_t, best_id, best_u, best_v):
     """Dense intersection of (B, K) rays against G clusters per block at once.
 
@@ -358,78 +317,6 @@ def _unblock(R, *xs):
     return tuple(x.reshape(-1)[:R] for x in xs)
 
 
-def traverse_walk(tree: ClusterTree, origin, direction, block: int = 256,
-                  max_steps: int = 200_000):
-    """Block-synchronous walk of the cluster tree by its skip links.
-
-    Every block of K rays holds one node cursor: a walk advances each block to
-    its next leaf that some ray's box test (nearer than its best t) reaches,
-    then the leaves are intersected, one cluster per block, and the walk
-    goes on from their skip links. Returns per-ray (t, tri_id, u, v) (BIG, -1,
-    0, 0 on a miss) and stats, int64 [walk_steps, leaf_rounds]: the walk's
-    iterations summed over its walks, and the leaf rounds, as the JAX
-    package's `traverse_walk`.
-
-    A walk iteration runs while some block has not reached a leaf or left
-    the tree, and at most `max_steps` per walk; the host reads that once per
-    WALK_STEPS_PER_SYNC iterations, each of which applies only while the
-    condition holds on the device, so the counts are the JAX package's."""
-    dtype = origin.dtype
-    R = origin.shape[0]
-    dev = origin.device
-    n_nodes = tree.skip.shape[0]
-    big = torch.finfo(dtype).max
-    o, d = _blocks(origin, direction, block)
-    B, K, _ = o.shape
-    inv_d = 1.0 / d
-
-    def walk_cond(node, at_leaf, steps):
-        return (~at_leaf & (node < n_nodes)).any() & (steps < max_steps)
-
-    def walk(node, best_t):
-        """Advance every block to its next hit leaf (or off the tree)."""
-        at_leaf = torch.zeros((B,), dtype=torch.bool, device=dev)
-        steps = torch.zeros((), dtype=torch.int64, device=dev)
-        go = walk_cond(node, at_leaf, steps)
-        while bool(go):
-            for _ in range(WALK_STEPS_PER_SYNC):
-                nd = torch.clamp(node, max=n_nodes - 1)
-                t1 = (tree.bb_min[nd][:, None, :] - o) * inv_d
-                t2 = (tree.bb_max[nd][:, None, :] - o) * inv_d
-                t_near = torch.minimum(t1, t2).amax(dim=-1)
-                t_far = torch.maximum(t1, t2).amin(dim=-1)
-                any_hit = ((t_near <= t_far) & (t_far >= 0.0) & (t_near < best_t)).any(dim=-1)
-                is_leaf = tree.node_cluster[nd] >= 0
-                active = ~at_leaf & (node < n_nodes)
-                stop = active & any_hit & is_leaf
-                nxt = torch.where(any_hit & ~is_leaf, nd + 1, tree.skip[nd])
-                node = torch.where(go & active & ~stop, nxt, node)
-                at_leaf = at_leaf | (go & stop)
-                steps = steps + go
-                go = go & walk_cond(node, at_leaf, steps)
-        return node, at_leaf, steps
-
-    best_t = torch.full((B, K), big, dtype=dtype, device=dev)
-    best_id = torch.full((B, K), -1, dtype=torch.int32, device=dev)
-    best_u = torch.zeros((B, K), dtype=dtype, device=dev)
-    best_v = torch.zeros((B, K), dtype=dtype, device=dev)
-    node, at_leaf, walk_steps = walk(torch.zeros((B,), dtype=torch.int64, device=dev), best_t)
-    rounds = 0
-    while bool(at_leaf.any()):
-        nd = torch.clamp(node, max=n_nodes - 1)
-        cl = torch.clamp(tree.node_cluster[nd], min=0)
-        tri_c = torch.where(at_leaf[:, None], tree.tri_id[cl], -1)
-        # Rays translated into cluster-local coordinates.
-        rayF = _ray_features(o - tree.center[cl][:, None, :], d)
-        best_t, best_id, best_u, best_v = intersect_cluster(
-            tree.feat[cl], tri_c, rayF, o, d, best_t, best_id, best_u, best_v)
-        node, at_leaf, steps = walk(torch.where(at_leaf, tree.skip[nd], node), best_t)
-        walk_steps = walk_steps + steps
-        rounds += 1
-    stats = torch.stack([walk_steps, torch.full_like(walk_steps, rounds)])
-    return (*_unblock(R, best_t, best_id, best_u, best_v), stats)
-
-
 def traverse_bestfirst(tree: ClusterTree, origin, direction, block: int = 256, group: int = 8):
     """Dense-cull best-first traversal: few fat rounds, no tree walk.
 
@@ -438,8 +325,7 @@ def traverse_bestfirst(tree: ClusterTree, origin, direction, block: int = 256, g
        block's nearest entry distance.
     2. ORDER: each block's candidates sorted by that entry bound.
     3. ROUNDS: each round takes the next G = min(group, C) candidates of
-       every block (gathered by the one-hot product of val0/1/2 when the
-       tree has them, else by rows) and intersects them in one product. A
+       every block (gathered by rows) and intersects them in one product. A
        candidate is active while its bound is below the block's demand, the
        largest best t of its rays that are not parked (|origin| > 1e28):
        a parked ray finds no hit, and would keep its block from stopping.
@@ -454,8 +340,7 @@ def traverse_bestfirst(tree: ClusterTree, origin, direction, block: int = 256, g
     big = torch.finfo(dtype).max
     o, d = _blocks(origin, direction, block)
     B, K, _ = o.shape
-    C, S = tree.tri_id.shape
-    F = 40 * S  # feat columns of the one-hot table
+    C = tree.tri_id.shape[0]
 
     # ---- 1. exact per-ray slab test against every cluster AABB, tiled over C ----
     # (lo - o) * inv_d, not lo * inv_d - o * inv_d: with an axis-aligned ray
@@ -490,7 +375,6 @@ def traverse_bestfirst(tree: ClusterTree, origin, direction, block: int = 256, g
     best_id = torch.full((B, K), -1, dtype=torch.int32, device=dev)
     best_u = torch.zeros((B, K), dtype=dtype, device=dev)
     best_v = torch.zeros((B, K), dtype=dtype, device=dev)
-    iota_c = torch.arange(C, device=dev)
 
     def round_inputs(r):
         demand = torch.where(parked, 0.0, best_t).amax(dim=1)
@@ -499,17 +383,7 @@ def traverse_bestfirst(tree: ClusterTree, origin, direction, block: int = 256, g
     r = 0
     cl, active = round_inputs(r)
     while r < Cr and bool(active.any()):
-        if tree.val0 is not None:
-            # Exact one-hot gather: a bf16 product has one nonzero term, so each
-            # of the three is exact; their sum is taken in float32.
-            oh = (cl.reshape(B * G)[:, None] == iota_c[None, :]).to(torch.bfloat16)
-            mm = lambda v: (oh @ v).to(torch.float32)
-            val = mm(tree.val0) + mm(tree.val1) + mm(tree.val2)
-            feat_c = val[:, :F].reshape(B, G, 10, 4 * S).to(dtype)
-            tri_c = torch.round(val[:, F:F + S]).to(torch.int32).reshape(B, G, S)
-            center_c = val[:, F + S:].to(dtype).reshape(B, G, 3)
-        else:
-            feat_c, tri_c, center_c = tree.feat[cl], tree.tri_id[cl], tree.center[cl]
+        feat_c, tri_c, center_c = tree.feat[cl], tree.tri_id[cl], tree.center[cl]
         tri_c = torch.where(active[:, :, None], tri_c, -1)
         o_local = o[:, None, :, :] - center_c[:, :, None, :]        # (B, G, K, 3)
         rayF = _ray_features(o_local, d[:, None, :, :].expand_as(o_local))
@@ -521,45 +395,23 @@ def traverse_bestfirst(tree: ClusterTree, origin, direction, block: int = 256, g
     return (*_unblock(R, best_t, best_id, best_u, best_v), stats)
 
 
-def traverse(tables, origin, direction, block: int = 256, method: str = "bestfirst",
-             group: int = 8):
-    """Closest triangle hit per ray by `method`: (t, tri_id, u, v, stats (2,)
-    int64). "walk" and "bestfirst" read a ClusterTree; "kernel" (or the JAX
-    package's name for it, "pallas") reads a ClusterBVH and runs
-    traverse_kernel.traverse, whose per-block stats are reduced as the JAX
-    package reduces its Pallas kernel's: [candidates summed, most rounds of a
-    block]. Its block is BLOCK rays; t, u and v come back in the rays' dtype."""
-    method = "kernel" if method == "pallas" else method
-    if method not in METHODS:
-        raise ValueError(f"traverse: unknown method {method!r}; one of {METHODS}")
-    want = ClusterBVH if method == "kernel" else ClusterTree
-    if not isinstance(tables, want):
-        raise TypeError(f"traverse(method={method!r}) reads a {want.__name__}")
-    if method == "walk":
-        return traverse_walk(tables, origin, direction, block)
-    if method == "bestfirst":
-        return traverse_bestfirst(tables, origin, direction, block, group=group)
-    if block != traverse_kernel.BLOCK:
-        raise ValueError(f"the traversal kernel's block is {traverse_kernel.BLOCK} rays, not {block}")
-    t, tid, u, v, st = traverse_kernel.traverse(tables, origin, direction)
-    cast = lambda x: x.to(origin.dtype)
-    return cast(t), tid, cast(u), cast(v), torch.stack([st[:, 0].sum(), st[:, 1].max()]).long()
-
-
-def default_method(cbvh: ClusterBVH) -> str:
-    """make_intersect_fn's choice for method=None, made from the tables when
-    the closure is built: "kernel" wherever the kernel route runs (float32
-    tables on the card, any dtype on the CPU, where its plain version
-    serves), "bestfirst" for other tables on the card, as the JAX package
-    takes its Pallas kernel for float32 tables only."""
-    if cbvh.rec.device.type == "cuda" and cbvh.rec.dtype != torch.float32:
-        return "bestfirst"
-    return "kernel"
+def traverse(tables, origin, direction):
+    """Closest triangle hit per ray: (t, tri_id, u, v, stats (2,) int64), by
+    the tables' format. A ClusterBVH runs traverse_kernel.traverse, whose
+    per-block stats are reduced as the JAX package reduces its Pallas
+    kernel's: [candidates summed, most rounds of a block]; t, u and v come
+    back in the rays' dtype. A ClusterTree runs traverse_bestfirst."""
+    if isinstance(tables, ClusterBVH):
+        t, tid, u, v, st = traverse_kernel.traverse(tables, origin, direction)
+        cast = lambda x: x.to(origin.dtype)
+        return cast(t), tid, cast(u), cast(v), torch.stack([st[:, 0].sum(), st[:, 1].max()]).long()
+    if isinstance(tables, ClusterTree):
+        return traverse_bestfirst(tables, origin, direction)
+    raise TypeError(f"traverse reads a ClusterBVH or a ClusterTree, not a {type(tables).__name__}")
 
 
 def make_intersect_fn(tables: SceneTables, meta: SceneMeta, cbvh: ClusterBVH, geo_pack=None,
-                      block: int = 256, sort_rays: bool = True, method: str | None = None,
-                      group: int = 8, tree: ClusterTree | None = None):
+                      sort_rays: bool = True):
     """Scene intersect closure: cluster BVH for triangles + brute spheres/quadrics.
 
     sort_rays: group rays into coherent blocks by the Morton/octant key inside
@@ -567,35 +419,17 @@ def make_intersect_fn(tables: SceneTables, meta: SceneMeta, cbvh: ClusterBVH, ge
     so the integrator's carry stays in lane order; False traverses the rays
     in lane order.
 
-    method: "kernel" (also "pallas"), "walk" or "bestfirst" (see `traverse`);
-    None chooses by `default_method`. Walk and best-first read `tree` (the
-    scene's `build_cluster_tree`), and raise without it; the kernel takes
-    block=BLOCK only, and float32 tables on the card. `block` and `group` are
-    the walk's and best-first's block of rays and clusters a round.
-
+    The triangles traverse best-first where the BVH carries a ClusterTree
+    (`cbvh.tree`, see upload_cluster_bvh) and by the kernel route otherwise.
     Hit.steps is the traversal's stats (see `traverse`). The closure's
-    `leaves` are the tensors it reads but the tree, (tables, cbvh, geo_pack:
-    the triangles' packed rows, built here unless given), and `rebind(leaves)`
-    builds it over others of the same shapes; `key` names the rest, the tree
-    by identity. `capturable` is true for the kernel route only: walk and
-    best-first read their stop conditions on the host, so a loop that would
-    capture a step holding them runs the step eagerly. `method` is the one
-    chosen."""
-    method = default_method(cbvh) if method is None else ("kernel" if method == "pallas" else method)
-    if method not in METHODS:
-        raise ValueError(f"make_intersect_fn: unknown method {method!r}; one of {METHODS}")
-    if method == "kernel":
-        if block != traverse_kernel.BLOCK:
-            raise ValueError(f"the traversal kernel's block is {traverse_kernel.BLOCK} rays, not {block}")
-        if cbvh.rec.device.type == "cuda" and cbvh.rec.dtype != torch.float32:
-            raise ValueError("the traversal kernel takes float32 tables on the card; float64 "
-                             "tables traverse by method='bestfirst' or 'walk'")
-        trav = cbvh
-    elif tree is None:
-        raise ValueError(f"method={method!r} reads the cluster tree: pass "
-                         "tree=scene.build_cluster_tree(dtype, device)")
-    else:
-        trav = tree
+    `leaves` are the tensors it reads but the tree, (tables, cbvh without its
+    tree, geo_pack: the triangles' packed rows, built here unless given), and
+    `rebind(leaves)` builds it over others of the same shapes; `key` names the
+    rest, the tree by identity. `capturable` is true for the kernel route
+    only: best-first reads its stop condition on the host, so a loop that
+    would capture a step holding it runs the step eagerly."""
+    tree = cbvh.tree
+    trav = cbvh if tree is None else tree
     if geo_pack is None and meta.n_tris:
         geo_pack = build_geo_pack(tables)
 
@@ -608,8 +442,7 @@ def make_intersect_fn(tables: SceneTables, meta: SceneMeta, cbvh: ClusterBVH, ge
         if sort_rays:
             key = coherence_key(sg_o, sg_d, cbvh.bb_lo, cbvh.bb_hi)
             perm = torch.argsort(key, stable=True)
-            t_s, id_s, u_s, v_s, steps = traverse(trav, sg_o[perm], sg_d[perm], block,
-                                                  method=method, group=group)
+            t_s, id_s, u_s, v_s, steps = traverse(trav, sg_o[perm], sg_d[perm])
             best_t = torch.empty_like(t_s)
             best_id = torch.empty_like(id_s)
             best_uv = torch.empty((len(perm), 2), dtype=u_s.dtype, device=origin.device)
@@ -617,8 +450,7 @@ def make_intersect_fn(tables: SceneTables, meta: SceneMeta, cbvh: ClusterBVH, ge
             best_id[perm] = id_s
             best_uv[perm] = torch.stack([u_s, v_s], dim=-1)
         else:
-            best_t, best_id, u, v, steps = traverse(trav, sg_o, sg_d, block, method=method,
-                                                    group=group)
+            best_t, best_id, u, v, steps = traverse(trav, sg_o, sg_d)
             best_uv = torch.stack([u, v], dim=-1)
         # Re-evaluate the winner exactly (same gathered-triangle ops as the brute
         # path) so BVH and brute-force renders produce identical hits.
@@ -644,11 +476,9 @@ def make_intersect_fn(tables: SceneTables, meta: SceneMeta, cbvh: ClusterBVH, ge
 
         return Hit(t=best_t, surf_id=best_id, uv=best_uv, steps=steps)
 
-    opts = dict(block=block, sort_rays=sort_rays, method=method, group=group, tree=tree)
-    intersect.leaves = (tables, cbvh, geo_pack)
-    intersect.rebind = lambda leaves: make_intersect_fn(leaves[0], meta, leaves[1], leaves[2], **opts)
-    intersect.key = ("cluster_bvh", meta, method, block, sort_rays, group,
-                     None if method == "kernel" else id(tree))
-    intersect.capturable = method == "kernel"
-    intersect.method = method
+    intersect.leaves = (tables, cbvh._replace(tree=None), geo_pack)
+    intersect.rebind = lambda leaves: make_intersect_fn(
+        leaves[0], meta, leaves[1]._replace(tree=tree), leaves[2], sort_rays)
+    intersect.key = ("cluster_bvh", meta, sort_rays, None if tree is None else id(tree))
+    intersect.capturable = tree is None
     return intersect

@@ -121,11 +121,3 @@ def cdf_index(cdf, u):
 def row_take(x, idx):
     """x[arange(R), idx] for (R, K) x."""
     return torch.gather(x, -1, idx[..., None].to(torch.int64))[..., 0]
-
-
-def onehot_row_take(x, idx):
-    """x[arange(R), idx] for (R, K) x with small K, as a one-hot masked sum
-    over the K columns (the JAX package's form; row_take is the gather)."""
-    cols = torch.arange(x.shape[-1], device=x.device)
-    mask = cols == idx[..., None]
-    return torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device)).sum(dim=-1)

@@ -124,7 +124,7 @@ def render_distributed(scene, camera_idx: int = 0, cfg=None, verbose: bool = Fal
     every chunk and are closed when the loop ends. In a world of one this is
     a one-device render by the batch tracer.
     device: None is the rank's CUDA device (raise without one); "cpu" on request."""
-    from ..render import RenderConfig, build_device_bvh, build_device_tree
+    from ..render import RenderConfig
 
     cfg = cfg or RenderConfig()
     device = resolve_device(device)
@@ -138,10 +138,9 @@ def render_distributed(scene, camera_idx: int = 0, cfg=None, verbose: bool = Fal
     ptcfg = pt.PTConfig(max_bounces=cfg.max_bounces, global_seed=cfg.global_seed)
     film_cfg = film_mod.FilmConfig.from_json(cam.width, cam.height, cam.film)
     mesh = global_mesh()
-    cbvh = build_device_bvh(scene, tables, cfg.dtype, device)
+    cbvh = scene.build_cluster_bvh(np.dtype(cfg.dtype), device)
     step = sharding.sharded_render_step(meta, ptcfg, cam, film_cfg, mesh, dtype,
-                                        with_bvh=cbvh is not None, device=device,
-                                        tree=build_device_tree(scene, cbvh, device))
+                                        with_bvh=cbvh is not None, device=device)
     args = (tables, cbvh) if cbvh is not None else (tables,)
 
     total = cam.width * cam.height * spp

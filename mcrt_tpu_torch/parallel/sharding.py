@@ -101,12 +101,12 @@ def _summed(mesh: Mesh, local):
 
 
 def _local_film(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype, device,
-                differentiable: bool, tree=None):
+                differentiable: bool):
     """Returns fn(tables, cbvh, px, py, si) -> this rank's (H, W, 4) film of its
     slice of the global (R,) px, py, si. cbvh None intersects by brute force;
-    a cbvh intersects by cluster_bvh.make_intersect_fn's default method, with
-    `tree` (the scene's build_cluster_tree) where that method reads it
-    (float64 tables on the card, whose steps then run eagerly).
+    a cbvh through cluster_bvh.make_intersect_fn, by the route its tables
+    take (best-first for float64 tables on the card, whose steps then run
+    eagerly).
     The camera's constants are uploaded here, once: inside a step the upload
     would synchronise the host with the card. On the card the trace's loop is
     captured at the first call and replayed by the later ones of the same
@@ -122,7 +122,7 @@ def _local_film(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype, device
         lo, per = shard(px.shape[0], mesh.rank, mesh.size)
         on = lambda x: torch.as_tensor(x[lo:lo + per], device=device)
         intersect_fn = (None if cbvh is None
-                        else cluster_bvh.make_intersect_fn(tables, meta, cbvh, tree=tree))
+                        else cluster_bvh.make_intersect_fn(tables, meta, cbvh))
         rays = cam_mod.generate_rays(cam, on(px), on(py), on(si), cfg.global_seed, dtype,
                                      consts=consts)
         return intersect_fn, rays
@@ -148,7 +148,7 @@ def _trip_replays(graphs) -> tuple[int, int]:
 
 
 def sharded_render_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype,
-                        with_bvh: bool = False, device=None, tree=None):
+                        with_bvh: bool = False, device=None):
     """Returns fn(tables[, cbvh], px, py, si, film) -> film, cbvh present
     exactly when `with_bvh`.
 
@@ -161,13 +161,10 @@ def sharded_render_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype
     (path_tracer.BatchTrace, one per batch size): the first call of a size
     captures its bounce step on the card, later calls copy their tables in
     and replay it; close them (and clear the dict) when done.
-    tree: the scene's cluster tree, for tables that traverse best-first
-    (float64 on the card: build_cluster_tree; see _local_film).
     device: None is the CUDA device (raise without one); "cpu" on request."""
     device = resolve_device(device)
     dtype = torch_dtype(dtype)
-    local = _local_film(meta, cfg, cam, film_cfg, mesh, dtype, device, differentiable=False,
-                        tree=tree)
+    local = _local_film(meta, cfg, cam, film_cfg, mesh, dtype, device, differentiable=False)
 
     def step(tables, cbvh, px, py, si, film):
         return torch.as_tensor(film, device=device) + _all_reduce(mesh, local(tables, cbvh, px, py, si))
@@ -178,7 +175,7 @@ def sharded_render_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype
 
 
 def sharded_train_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype,
-                       with_bvh: bool = False, device=None, tree=None):
+                       with_bvh: bool = False, device=None):
     """Differentiable render step: returns fn(tables[, cbvh], params, px, py,
     si, target, stats=None) -> (loss, grads), cbvh present exactly when
     `with_bvh`.
@@ -192,9 +189,9 @@ def sharded_train_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype,
     device; the gradients are summed over the ranks, so every rank returns the
     same loss and gradients. Nothing in the step reads the card from the host.
     The returned function's `graphs` holds the trips captured on the card
-    (path_tracer._run_trips): the first call captures, later calls replay.
-    tree: as sharded_render_step's (trips that traverse best-first run
-    eagerly under checkpoint, and capture nothing).
+    (path_tracer._run_trips): the first call captures, later calls replay;
+    trips that traverse best-first run eagerly under checkpoint, and capture
+    nothing.
     device: None is the CUDA device (raise without one); "cpu" on request.
 
     stats: if a dict, the step records into it (utils/trace) the spans
@@ -209,8 +206,7 @@ def sharded_train_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype,
     the call), added to what the dict holds. With None nothing is recorded."""
     device = resolve_device(device)
     dtype = torch_dtype(dtype)
-    local = _local_film(meta, cfg, cam, film_cfg, mesh, dtype, device, differentiable=True,
-                        tree=tree)
+    local = _local_film(meta, cfg, cam, film_cfg, mesh, dtype, device, differentiable=True)
 
     def value_and_grad(tables, cbvh, params, px, py, si, target, stats=None):
         with trace.recording(stats), trace.span("train.step"):
@@ -244,27 +240,25 @@ def sharded_train_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype,
     return fn
 
 
-def image_step(meta, cfg: pt.PTConfig, cam, film_cfg, dtype, device=None, tree=None):
+def image_step(meta, cfg: pt.PTConfig, cam, film_cfg, dtype, device=None):
     """Returns fn(tables, cbvh, params, px, py, si) -> (H, W, 3) image.
 
     `params` is a dict of SceneTables mat_* fields that replace the tables'
     own, so the packs and the BVH intersect closure are rebuilt from them and
     the image is differentiable in them. cbvh None intersects by brute force.
-    px, py, si are (R,) pixel coordinates and sample indices on the device.
-    tree: as sharded_render_step's."""
+    px, py, si are (R,) pixel coordinates and sample indices on the device."""
     device = resolve_device(device)
     film = _local_film(meta, cfg, cam, film_cfg, LOCAL, torch_dtype(dtype), device,
-                       differentiable=True, tree=tree)
+                       differentiable=True)
     return lambda tables, cbvh, params, px, py, si: film_mod.scan(
         film(tables._replace(**params), cbvh, px, py, si))
 
 
 def train_step(meta, cfg: pt.PTConfig, cam, film_cfg, dtype, with_bvh: bool = False,
-               device=None, tree=None):
+               device=None):
     """The train step on one device: `sharded_train_step` over a world of one
     with no process group. Returns fn(tables[, cbvh], params, px, py, si,
     target, stats=None) -> (loss, grads), cbvh present exactly when
     `with_bvh`; `stats` as sharded_train_step's.
-    tree: as sharded_render_step's.
     device: None is the CUDA device (raise without one); "cpu" on request."""
-    return sharded_train_step(meta, cfg, cam, film_cfg, LOCAL, dtype, with_bvh, device, tree)
+    return sharded_train_step(meta, cfg, cam, film_cfg, LOCAL, dtype, with_bvh, device)

@@ -61,20 +61,6 @@ class RenderConfig:
     lanes: int = 1 << 14
 
 
-def build_device_bvh(scene: Scene, tables, dtype, device=None):
-    """ClusterBVH on `device` when the scene requests a BVH, else None."""
-    return scene.build_cluster_bvh(np.dtype(dtype), device)
-
-
-def build_device_tree(scene: Scene, cbvh, device=None):
-    """The cluster tree that cluster_bvh.make_intersect_fn's default method
-    reads on `cbvh` (best-first, for float64 tables on the card), else None:
-    the kernel route needs none."""
-    if cbvh is None or cluster_bvh.default_method(cbvh) == "kernel":
-        return None
-    return scene.build_cluster_tree(np.dtype(str(cbvh.rec.dtype).removeprefix("torch.")), device)
-
-
 def _ckpt_key(cfg: RenderConfig, cam, spp: int, scene_hash: str) -> str:
     """Fingerprint of everything that must match for a checkpoint to be resumable."""
     return (
@@ -288,9 +274,8 @@ def _render(scene, camera_idx, cfg, device, checkpoint_dir, checkpoint_every_s, 
     meta = scene.meta()
     film_cfg = film_mod.FilmConfig.from_json(cam.width, cam.height, cam.film)
     with trace.span("render.bvh"):
-        cbvh = build_device_bvh(scene, tables, cfg.dtype, device)
-        intersect_fn = None if cbvh is None else cluster_bvh.make_intersect_fn(
-            tables, meta, cbvh, tree=build_device_tree(scene, cbvh, device))
+        cbvh = scene.build_cluster_bvh(np.dtype(cfg.dtype), device)
+        intersect_fn = None if cbvh is None else cluster_bvh.make_intersect_fn(tables, meta, cbvh)
 
     if cfg.integrator == "photon_mapper":
         pmcfg = pm.PMConfig.from_json(scene.photon_map_config, max_eye_bounces=cfg.max_bounces,

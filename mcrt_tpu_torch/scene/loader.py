@@ -604,34 +604,22 @@ class Scene:
             )
         return cache[key]
 
-    def _cluster_cached(self, name, builder, dtype, device):
+    def build_cluster_bvh(self, dtype=np.float32, device=None):
+        """Fat-leaf cluster BVH (ops/cluster_bvh.upload_cluster_bvh: with its
+        ClusterTree where the tables traverse best-first), from
+        build_flat_bvh. Cached per (dtype, device); None without a BVH."""
+        from ..ops.cluster_bvh import upload_cluster_bvh
         from ..utils.device import resolve_device
 
         flat = self.build_flat_bvh(dtype)
         if flat is None:
             return None
         device = resolve_device(device)
-        cache = self.__dict__.setdefault(name, {})
+        cache = self.__dict__.setdefault("_cluster_cache", {})
         key = (np.dtype(dtype).name, str(device))
         if key not in cache:
-            cache[key] = builder(flat, self, dtype, device)
+            cache[key] = upload_cluster_bvh(flat, self, dtype, device)
         return cache[key]
-
-    def build_cluster_bvh(self, dtype=np.float32, device=None):
-        """Fat-leaf cluster BVH for the traversal kernel (see ops/cluster_bvh),
-        from build_flat_bvh. Cached per (dtype, device); None without a BVH."""
-        from ..ops.cluster_bvh import upload_cluster_bvh
-
-        return self._cluster_cached("_cluster_cache", upload_cluster_bvh, dtype, device)
-
-    def build_cluster_tree(self, dtype=np.float32, device=None):
-        """The JAX package's cluster tree and dense cluster tables over the same
-        flat BVH as build_cluster_bvh, for the walk and best-first traversals
-        (ops/cluster_bvh.ClusterTree). Built on request, cached per (dtype,
-        device); None without a BVH."""
-        from ..ops.cluster_bvh import upload_cluster_tree
-
-        return self._cluster_cached("_tree_cache", upload_cluster_tree, dtype, device)
 
     def meta(self) -> SceneMeta:
         return SceneMeta(

@@ -9,8 +9,8 @@ of the whole step in place of one launch per op.
 the second captured, every later one replayed, across every start loaded
 into the same buffers, until the loop's stop rule (`running`) says so.
 
-A step that reads a condition of its data on the host (the walk and
-best-first traversals, ops/cluster_bvh.py) cannot be captured: its builder
+A step that reads a condition of its data on the host (the best-first
+traversal, ops/cluster_bvh.py) cannot be captured: its builder
 sets `step.capturable = False`, and the loops then call it eagerly on the
 card, one launch per op, as on the CPU. `graphed` tells the two apart.
 

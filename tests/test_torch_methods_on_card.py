@@ -1,17 +1,15 @@
-"""The JAX package's traversal formulations on the card, and float64 there.
+"""Float64 on the card, whose tables take the best-first route.
 
 Imports no JAX, so it also runs on a machine that has a card and no JAX:
 
     python3 -m pytest --noconftest -q tests/test_torch_methods_on_card.py
 
-Without a card every test skips (the walk and best-first formulations run on
-the CPU too, where tests/test_torch_traverse_methods.py holds them to the JAX
-package; what is checked here is the card's own arithmetic and routes):
-- the best-first one-hot gather (bf16 products of a one-hot matrix, on the
-  card's matrix units) equals the plain row gather bit for bit;
-- float64 tables on the card take best-first with every loop step eager, and
-  a render, a train step and an exact k-NN there agree with the CPU's (whose
-  default route is the kernel's plain version) within rtol 1e-9.
+Without a card every test skips (best-first runs on the CPU too, where
+tests/test_torch_traverse_methods.py holds it to the JAX package; what is
+checked here is the card's own arithmetic and routes): float64 tables on the
+card take best-first with every loop step eager, and a render, a train step
+and an exact k-NN there agree with the CPU's (whose route is the kernel's
+plain version) within rtol 1e-9.
 """
 import numpy as np
 import pytest
@@ -21,12 +19,10 @@ import mcrt_tpu_torch as mt
 from mcrt_tpu_torch.accel import photon_grid as pg
 from mcrt_tpu_torch.camera import film as film_mod
 from mcrt_tpu_torch.integrator import path_tracer as pt
-from mcrt_tpu_torch.ops import cluster_bvh
 from mcrt_tpu_torch.parallel import sharding
 from mcrt_tpu_torch.scene.synthetic import height_field_scene
-from test_torch_kernel_on_card import grid_mesh, ray_set
 
-NO_CARD = "needs a CUDA card (the float64 route on the card and its matrix units); chip_smoke.py runs it"
+NO_CARD = "needs a CUDA card (the float64 route on the card); chip_smoke.py runs it"
 PM = {"emissions": 4000, "caustic_factor": 4.0, "k_nearest_photons": 12,
       "direct_visualization": False}
 
@@ -34,32 +30,6 @@ PM = {"emissions": 4000, "caustic_factor": 4.0, "k_nearest_photons": 12,
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip(NO_CARD)
-
-
-@pytest.mark.cuda
-def test_onehot_gather_matches_row_gather_on_card():
-    """The displaced grid at n=64 (8192 triangles, fewer than 2048 clusters,
-    so float32 tables carry the one-hot split): best-first through the
-    one-hot gather equals best-first through the row gather bit for bit on
-    each ray set (hits and stats), and its ids are the kernel's on at least
-    99% of the rays."""
-    _need_card()
-    (v0, e1, e2), flat = grid_mesh(64)
-    from types import SimpleNamespace
-
-    sc = SimpleNamespace(tri_v0=v0, tri_e1=e1, tri_e2=e2)
-    tree = cluster_bvh.upload_cluster_tree(flat, sc, np.float32, "cuda")
-    cbvh = cluster_bvh.upload_cluster_bvh(flat, sc, np.float32, "cuda")
-    assert tree.val0 is not None and tree.val0.is_cuda
-    rows = tree._replace(val0=None, val1=None, val2=None)
-    for kind in ("camera", "random", "axis", "mixed"):
-        o, d = (torch.as_tensor(x).cuda() for x in ray_set(kind, n=2048))
-        onehot = cluster_bvh.traverse(tree, o, d, method="bestfirst")
-        plain = cluster_bvh.traverse(rows, o, d, method="bestfirst")
-        for name, a, b in zip(("t", "tri_id", "u", "v", "stats"), onehot, plain):
-            assert torch.equal(a, b), (kind, name)
-        kern = cluster_bvh.traverse(cbvh, o, d, method="kernel")
-        assert float((kern[1] == onehot[1]).double().mean()) >= 0.99, kind
 
 
 def _scene(width=16, photon=False):
@@ -88,9 +58,10 @@ def test_float64_render_matches_cpu_on_card(integrator):
 
 @pytest.mark.cuda
 def test_float64_train_step_matches_cpu_on_card():
-    """One train step in float64 on the card (best-first; the trips run
-    eagerly under checkpoint and capture nothing) against the CPU's: loss
-    within rtol 1e-9, each table's gradients within 1e-9 of its largest |g|."""
+    """One train step in float64 on the card (best-first, from the tree the
+    scene's BVH carries there; the trips run eagerly under checkpoint and
+    capture nothing) against the CPU's: loss within rtol 1e-9, each table's
+    gradients within 1e-9 of its largest |g|."""
     _need_card()
     scene = _scene()
     cam = scene.cameras[0]
@@ -98,10 +69,10 @@ def test_float64_train_step_matches_cpu_on_card():
     for dev in ("cuda", "cpu"):
         tables = scene.tables(np.float64, dev)
         cbvh = scene.build_cluster_bvh(np.float64, dev)
-        tree = scene.build_cluster_tree(np.float64, dev) if dev == "cuda" else None
+        assert (cbvh.tree is not None) == (dev == "cuda")
         step = sharding.train_step(scene.meta(), pt.PTConfig(max_bounces=6), cam,
                                    film_mod.FilmConfig.from_json(cam.width, cam.height, cam.film),
-                                   torch.float64, with_bvh=True, device=dev, tree=tree)
+                                   torch.float64, with_bvh=True, device=dev)
         lin = torch.arange(cam.width * cam.height, device=dev)
         params = {k: getattr(tables, k) for k in sharding.DEFAULT_TRAIN_PARAMS}
         target = np.random.default_rng(4).random((cam.height, cam.width, 3)) * 0.5

@@ -1,21 +1,21 @@
-"""The JAX package's own traversal formulations in the port: the tree walk,
-the best-first traversal with its one-hot gather, `traverse(method=...)`,
-`make_intersect_fn`'s method, block, order and group, and the helpers that
-came with them (`onehot_row_take`, `surface_normal`, `shading_normal`,
-`scene_bounds`, `PTConfig.sky`), each against its JAX counterpart on the CPU;
-then the rule that picks a method, and the loops that run a step eagerly when
-its intersect cannot be captured.
+"""The JAX package's best-first traversal in the port, `make_intersect_fn`'s
+two routes and orders, and the helpers that came with them (`surface_normal`,
+`shading_normal`, `scene_bounds`, `PTConfig.sky`), each against its JAX
+counterpart on the CPU; then the route rule, `traverse`'s dispatch on the
+table format, the BVH upload that carries the best-first tables, and the
+loops that run a step eagerly when its intersect cannot be captured.
 
 Inputs are made from numpy seeds and handed to both packages; the cluster
 tables come from the JAX package's ClusterBVH through convert.py, or from the
 same flat BVH through each package's own builder.
 
 Bars:
-- walk and best-first in float64: triangle ids identical, t, u and v within
-  rtol 1e-10, stats equal as integers (both packages round the forms to
-  float32, as the JAX package's einsum does);
-- the float32 one-hot gather: ids identical, t within rtol 1e-6, and
-  val0 + val1 + val2 equal to the table bit for bit;
+- best-first in float64: triangle ids identical, t, u and v within rtol
+  1e-10, stats equal as integers (both packages round the forms to float32,
+  as the JAX package's einsum does);
+- best-first in float32, whose row gathers the JAX package takes by an
+  exact one-hot product: ids and stats identical, t, u and v within rtol
+  1e-6;
 - intersect closures: the bars of
   tests/test_torch_traverse.py::test_intersect_fn_matches_jax (ids identical,
   t and uv within rtol 1e-12 in float64, 1e-6 in float32), steps equal;
@@ -23,7 +23,6 @@ Bars:
   tests/test_torch_path_tracer.py.
 """
 import functools
-import importlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -37,8 +36,9 @@ from mcrt_tpu_torch.camera import camera as tcam
 from mcrt_tpu_torch.camera import film as tfilm
 from mcrt_tpu_torch.integrator import path_tracer as tpt
 from mcrt_tpu_torch.ops import cluster_bvh as tcb
-from mcrt_tpu_torch.ops import geometry as tgeo
 from mcrt_tpu_torch.ops import intersect as tisect
+from mcrt_tpu_torch.ops import traverse_kernel as tk
+from mcrt_tpu_torch.parallel import distributed as tdist
 from mcrt_tpu_torch.parallel import sharding as tsh
 from mcrt_tpu_torch.scene.synthetic import height_field_scene, make_displaced_grid
 from mcrt_tpu_torch.utils import cuda_graph
@@ -47,16 +47,13 @@ jnp = pytest.importorskip("jax.numpy")
 from mcrt_tpu.camera import camera as jcam  # noqa: E402
 from mcrt_tpu.integrator import path_tracer as jpt  # noqa: E402
 from mcrt_tpu.ops import cluster_bvh as jcb  # noqa: E402
-from mcrt_tpu.ops import geometry as jgeo  # noqa: E402
 from mcrt_tpu.ops import intersect as jisect  # noqa: E402
 from mcrt_tpu.ops import traverse_kernel as jtk  # noqa: E402
 from mcrt_tpu.scene.loader import Scene as JScene  # noqa: E402
 
 torch.set_num_threads(1)  # pytest-xdist runs several workers on the same cores
-trender = importlib.import_module("mcrt_tpu_torch.render")   # the package exports render()
 
-TREE_FIELDS = ("bb_min", "bb_max", "skip", "node_cluster", "feat", "tri_id", "center",
-               "cl_bb_min", "cl_bb_max")
+TREE_FIELDS = ("feat", "tri_id", "center", "cl_bb_min", "cl_bb_max")
 PARK = 2e30
 
 
@@ -133,7 +130,7 @@ def _assert_hits(got, want, rtol, stats=True):
 
 
 # ---------------------------------------------------------------------------------
-# (a) the formulations, on identical tables
+# (a) best-first, on identical tables
 # ---------------------------------------------------------------------------------
 
 # (triangles or grid size, seed, fat-leaf size, block, rays): a short last
@@ -143,24 +140,48 @@ MESHES = {"tris900": (900, 11, 32, 64, 512), "tris2000": (2000, 4, 64, 256, 700)
           "grid24_parked": (24, 3, 32, 128, 512)}
 
 
-@pytest.mark.parametrize("mesh", sorted(MESHES))
-@pytest.mark.parametrize("method", ["walk", "bestfirst"])
-def test_formulation_matches_jax_float64(method, mesh):
-    """traverse_walk and traverse_bestfirst against the JAX package's on
-    identical float64 tables (convert.cluster_tree_from_numpy of its
-    ClusterBVH): hits and stats ([walk steps, leaf rounds] or [candidates,
-    rounds]). A block that holds parked lanes still stops."""
+def _mesh_rays(mesh, dtype):
     n, seed, leaf, block, R = MESHES[mesh]
-    grid = mesh.startswith("grid")
-    _, _, jb = _meshes(n, seed, leaf, np.float64, grid)
+    if mesh.startswith("grid"):
+        return _grid_rays(R, seed, dtype)
+    return _rays(R, seed + 1, dtype, parked=64, axis=16)
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_formulation_matches_jax_float64(mesh):
+    """traverse_bestfirst against the JAX package's on identical float64
+    tables (convert.cluster_tree_from_numpy of its ClusterBVH): hits and
+    stats ([candidates, rounds]). A block that holds parked lanes still
+    stops."""
+    n, seed, leaf, block, _ = MESHES[mesh]
+    _, _, jb = _meshes(n, seed, leaf, np.float64, mesh.startswith("grid"))
     tree = _tree_from_jax(jb, np.float64)
-    assert tree.val0 is None                       # float64 tables gather rows
-    o, d = (_grid_rays(R, seed, np.float64) if grid
-            else _rays(R, seed + 1, np.float64, parked=64, axis=16))
-    want = jcb.traverse(jb, jnp.asarray(o), jnp.asarray(d), block=block, method=method)
-    got = tcb.traverse(tree, torch.as_tensor(o), torch.as_tensor(d), block=block, method=method)
+    o, d = _mesh_rays(mesh, np.float64)
+    want = jcb.traverse(jb, jnp.asarray(o), jnp.asarray(d), block=block, method="bestfirst")
+    got = tcb.traverse_bestfirst(tree, torch.as_tensor(o), torch.as_tensor(d), block=block)
     _assert_hits(got, want, 1e-10)
     assert got[0].dtype == torch.float64 and got[4].dtype == torch.int64
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_bestfirst_float32_rows_match_jax_onehot(mesh):
+    """Best-first in float32 over the port's own upload_cluster_tree of the
+    flat BVH, which gathers rows, against the JAX package's best-first over
+    its upload of the same flat BVH, which gathers by its exact bf16 one-hot
+    product (under 2048 clusters): the tables equal bit for bit, the hits
+    and stats at the float32 bars."""
+    n, seed, leaf, block, _ = MESHES[mesh]
+    flat, sc, jb = _meshes(n, seed, leaf, np.float32, mesh.startswith("grid"))
+    assert jb.val0 is not None                     # the JAX side takes the one-hot gather
+    tree = tcb.upload_cluster_tree(flat, sc, np.float32, "cpu")
+    for name in TREE_FIELDS:
+        np.testing.assert_array_equal(getattr(tree, name).numpy(), np.asarray(getattr(jb, name)),
+                                      err_msg=name)
+    o, d = _mesh_rays(mesh, np.float32)
+    want = jcb.traverse(jb, jnp.asarray(o), jnp.asarray(d), block=block, method="bestfirst")
+    got = tcb.traverse_bestfirst(tree, torch.as_tensor(o), torch.as_tensor(d), block=block)
+    _assert_hits(got, want, 1e-6)
+    assert got[0].dtype == torch.float32
 
 
 @pytest.mark.parametrize("group", [1, 3, 8])
@@ -173,46 +194,9 @@ def test_bestfirst_group_matches_jax(group):
     o, d = _rays(512, 5, np.float64, parked=32)
     want = jcb.traverse(jb, jnp.asarray(o), jnp.asarray(d), block=128, method="bestfirst",
                         group=group)
-    got = tcb.traverse(tree, torch.as_tensor(o), torch.as_tensor(d), block=128,
-                       method="bestfirst", group=group)
+    got = tcb.traverse_bestfirst(tree, torch.as_tensor(o), torch.as_tensor(d), block=128,
+                                 group=group)
     _assert_hits(got, want, 1e-10)
-
-
-def test_bestfirst_onehot_gather_path_f32():
-    """The JAX package's test_bestfirst_onehot_gather_path_f32 setup (900
-    random triangles, 32-triangle leaves, 512 rays in blocks of 64), each
-    package's tables built by its own upload from the same flat BVH: the
-    port's bf16 split is the JAX package's bit for bit and reconstructs the
-    float32 table exactly; the one-hot best-first traversal gives the JAX
-    package's hits (t within rtol 1e-6) and stats, and the plain-gather one
-    the same hits bit for bit."""
-    flat, sc, jb = _meshes(900, 11, 32, np.float32)
-    tree = tcb.upload_cluster_tree(flat, sc, np.float32, "cpu")
-    assert tree.val0 is not None and tree.val0.dtype == torch.bfloat16
-    C, S = tree.tri_id.shape
-    for name in TREE_FIELDS:
-        np.testing.assert_array_equal(getattr(tree, name).numpy(), np.asarray(getattr(jb, name)),
-                                      err_msg=name)
-    for mine, theirs in zip((tree.val0, tree.val1, tree.val2), (jb.val0, jb.val1, jb.val2)):
-        np.testing.assert_array_equal(mine.view(torch.int16).numpy(),
-                                      np.asarray(theirs).view(np.int16))
-    val = tree.val0.float() + tree.val1.float() + tree.val2.float()
-    assert torch.equal(val[:, :40 * S], tree.feat.reshape(C, 40 * S))
-    assert torch.equal(val[:, 40 * S:41 * S].round().to(torch.int32), tree.tri_id)
-    assert torch.equal(val[:, 41 * S:], tree.center)
-
-    rng = np.random.RandomState(3)
-    o = (rng.randn(512, 3) * 20).astype(np.float32)
-    d = rng.randn(512, 3).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    want = jcb.traverse(jb, jnp.asarray(o), jnp.asarray(d), block=64, method="bestfirst")
-    to, td = torch.as_tensor(o), torch.as_tensor(d)
-    got = tcb.traverse(tree, to, td, block=64, method="bestfirst")
-    _assert_hits(got, want, 1e-6)
-    plain = tcb.traverse(tree._replace(val0=None, val1=None, val2=None), to, td, block=64,
-                         method="bestfirst")
-    for a, b in zip(got, plain):
-        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------------
@@ -231,21 +215,13 @@ def _normal_scenes():
     return ts, js, ts.tables(np.float64, "cpu"), js.tables(jnp.float64)
 
 
-@pytest.mark.parametrize("name", ["onehot_row_take", "surface_normal", "shading_normal",
-                                  "scene_bounds"])
+@pytest.mark.parametrize("name", ["surface_normal", "shading_normal", "scene_bounds"])
 def test_helper_matches_jax(name):
-    """geometry.onehot_row_take, intersect.surface_normal and shading_normal
-    (over triangles with and without interpolated normals, spheres and a
-    quadric) and path_tracer.scene_bounds against the JAX functions, float64:
-    within rtol 1e-12 (exact for the row take and the bounds)."""
+    """intersect.surface_normal and shading_normal (over triangles with and
+    without interpolated normals, spheres and a quadric) and
+    path_tracer.scene_bounds against the JAX functions, float64: within rtol
+    1e-12 (exact for the bounds)."""
     rng = np.random.default_rng(7)
-    if name == "onehot_row_take":
-        x = rng.normal(size=(64, 37))
-        idx = rng.integers(0, 37, 64)
-        got = tgeo.onehot_row_take(torch.as_tensor(x), torch.as_tensor(idx))
-        np.testing.assert_array_equal(got.numpy(), np.asarray(jgeo.onehot_row_take(x, idx)))
-        np.testing.assert_array_equal(got.numpy(), x[np.arange(64), idx])
-        return
     ts, js, tt, jt = _normal_scenes()
     meta, jmeta = ts.meta(), js.meta()
     assert (meta.n_tris, meta.n_sphs, meta.n_quads) == (jmeta.n_tris, jmeta.n_sphs, jmeta.n_quads)
@@ -273,7 +249,7 @@ def test_helper_matches_jax(name):
 
 
 # ---------------------------------------------------------------------------------
-# (c) make_intersect_fn's method and order
+# (c) make_intersect_fn's routes and order
 # ---------------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
@@ -305,23 +281,32 @@ def _scene_rays(ts, n, dtype, seed=2):
     return o[mix], d[mix]
 
 
+def _bvh_taking_bestfirst(scene, dtype, monkeypatch):
+    """The scene's ClusterBVH uploaded under the route rule patched to take
+    best-first (as float64 tables do on the card): it carries its
+    ClusterTree. Uploaded anew, not from the scene's cache."""
+    monkeypatch.setattr(tcb, "takes_bestfirst", lambda device, dtype: True)
+    return tcb.upload_cluster_bvh(scene.build_flat_bvh(dtype), scene, dtype, "cpu")
+
+
 @pytest.mark.parametrize("sort_rays", [True, False])
-@pytest.mark.parametrize("method", ["walk", "bestfirst", "kernel"])
+@pytest.mark.parametrize("method", ["bestfirst", "kernel"])
 def test_intersect_fn_method_matches_jax(method, sort_rays, monkeypatch):
-    """make_intersect_fn(method=m, sort_rays=s) against the JAX package's
-    closure with the same arguments, on the inline height field's "bvh"
-    block (1152 triangles), 512 rays: all four Hit fields and steps. Walk and
-    best-first in float64 (their tree built on request); the kernel route
+    """make_intersect_fn(sort_rays=s) against the JAX package's closure with
+    the same order and method, on the inline height field's "bvh" block
+    (1152 triangles), 512 rays: all four Hit fields and steps. Best-first in
+    float64, reached through a BVH that carries its tree; the kernel route
     (the plain version here) in float32 against the Pallas kernel in
     interpret mode, which takes float32 tables only."""
     dtype = "float32" if method == "kernel" else "float64"
     ts, js = _hf_scenes()
     tt, jt = ts.tables(np.dtype(dtype), "cpu"), js.tables(jnp.dtype(dtype))
-    tb, jb = ts.build_cluster_bvh(np.dtype(dtype), "cpu"), js.build_cluster_bvh(np.dtype(dtype))
-    tree = None if method == "kernel" else ts.build_cluster_tree(np.dtype(dtype), "cpu")
+    tb = (ts.build_cluster_bvh(np.dtype(dtype), "cpu") if method == "kernel"
+          else _bvh_taking_bestfirst(ts, np.dtype(dtype), monkeypatch))
+    jb = js.build_cluster_bvh(np.dtype(dtype))
     o, d = _scene_rays(ts, 512, dtype)
-    fn = tcb.make_intersect_fn(tt, ts.meta(), tb, sort_rays=sort_rays, method=method, tree=tree)
-    assert fn.method == method and fn.capturable == (method == "kernel")
+    fn = tcb.make_intersect_fn(tt, ts.meta(), tb, sort_rays=sort_rays)
+    assert (tb.tree is None) == (method == "kernel") == fn.capturable
     got = fn(torch.as_tensor(o), torch.as_tensor(d))
     if method == "kernel":
         monkeypatch.setattr(jcb, "traverse", _pallas_interpret)
@@ -366,51 +351,77 @@ def test_trace_sky_matches_jax(sky):
 
 
 # ---------------------------------------------------------------------------------
-# (d) the method chosen, and what raises
+# (d) the route rule, the dispatch on the table format, and the upload
 # ---------------------------------------------------------------------------------
-
-def _stand_in(device, dtype):
-    """A ClusterBVH stand-in whose `rec` reports `device` and `dtype`: enough
-    for the choice, which reads nothing else (no card is needed to name one)."""
-    return SimpleNamespace(rec=SimpleNamespace(device=torch.device(device),
-                                               dtype=getattr(torch, dtype)))
-
 
 @pytest.mark.parametrize("device,dtype,want", [
     ("cpu", "float32", "kernel"), ("cpu", "float64", "kernel"),
     ("cuda", "float32", "kernel"), ("cuda", "float64", "bestfirst")])
 def test_default_method(device, dtype, want):
-    """method=None takes the kernel route wherever it runs (float32 tables on
-    the card; any dtype on the CPU, through its plain version) and best-first
-    for float64 tables on the card, the JAX package's rule (its Pallas kernel
-    takes float32 tables only). On the CPU the closure's choice is the same."""
-    assert tcb.default_method(_stand_in(device, dtype)) == want
+    """The route rule: tables take the kernel route wherever it runs
+    (float32 tables on the card; any dtype on the CPU, through its plain
+    version) and best-first, with a ClusterTree, for float64 tables on the
+    card, the JAX package's rule (its Pallas kernel takes float32 tables
+    only). No card is needed to name one. On the CPU the scene's BVH carries
+    no tree and its closure is capturable."""
+    assert tcb.takes_bestfirst(torch.device(device), getattr(torch, dtype)) == (want == "bestfirst")
     if device == "cpu":
         ts, _ = _hf_scenes(6, 8)
-        fn = tcb.make_intersect_fn(ts.tables(np.dtype(dtype), "cpu"), ts.meta(),
-                                   ts.build_cluster_bvh(np.dtype(dtype), "cpu"))
-        assert fn.method == want and fn.capturable
+        cbvh = ts.build_cluster_bvh(np.dtype(dtype), "cpu")
+        fn = tcb.make_intersect_fn(ts.tables(np.dtype(dtype), "cpu"), ts.meta(), cbvh)
+        assert cbvh.tree is None and fn.capturable
 
 
-@pytest.mark.parametrize("case", ["kernel_float64_on_card", "tree_missing", "kernel_block",
-                                  "unknown_method"])
-def test_intersect_fn_refuses(case):
-    """An explicit method="kernel" on float64 tables on the card raises (the
-    kernel takes float32), as does walk or best-first without the tree, the
-    kernel with a block other than its 256 rays, and a name that is no
-    method: each when the closure is built, with no other route taken."""
+@pytest.mark.parametrize("tables", ["bvh", "tree", "other"])
+def test_traverse_dispatches_on_table_type(tables):
+    """traverse(tables, o, d): a ClusterBVH runs traverse_kernel.traverse
+    (its per-block stats reduced to [candidates summed, most rounds]), a
+    ClusterTree runs traverse_bestfirst, each bit for bit; any other object
+    raises TypeError."""
+    flat, sc, _ = _meshes(900, 11, 32, np.float32)
+    o, d = (torch.as_tensor(x) for x in _rays(512, 12, np.float32, parked=32, axis=8))
+    if tables == "other":
+        with pytest.raises(TypeError):
+            tcb.traverse(tuple(tcb.upload_cluster_bvh(flat, sc, np.float32, "cpu")), o, d)
+        return
+    if tables == "bvh":
+        cbvh = tcb.upload_cluster_bvh(flat, sc, np.float32, "cpu")
+        got = tcb.traverse(cbvh, o, d)
+        *want, st = tk.traverse(cbvh, o, d)
+        want.append(torch.stack([st[:, 0].sum(), st[:, 1].max()]).long())
+    else:
+        tree = tcb.upload_cluster_tree(flat, sc, np.float32, "cpu")
+        got, want = tcb.traverse(tree, o, d), tcb.traverse_bestfirst(tree, o, d)
+    assert bool((got[1] >= 0).any())
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_upload_carries_tree(dtype, monkeypatch):
+    """upload_cluster_bvh: float32 tables carry no tree. Float64 tables,
+    under the route rule patched as on the card, carry the ClusterTree that
+    upload_cluster_tree builds, and the closure over them keeps it out of its
+    `leaves` (no graph's static copy holds it) and in its `key` by identity,
+    is not capturable, and rebinds over the same tree."""
     ts, _ = _hf_scenes(6, 8)
-    tables, meta = ts.tables(np.float64, "cpu"), ts.meta()
-    cbvh = ts.build_cluster_bvh(np.float64, "cpu")
-    with pytest.raises(ValueError):
-        if case == "kernel_float64_on_card":
-            tcb.make_intersect_fn(tables, meta, _stand_in("cuda", "float64"), method="kernel")
-        elif case == "tree_missing":
-            tcb.make_intersect_fn(tables, meta, cbvh, method="bestfirst")
-        elif case == "kernel_block":
-            tcb.make_intersect_fn(tables, meta, cbvh, block=128)
-        else:
-            tcb.make_intersect_fn(tables, meta, cbvh, method="octree")
+    if dtype == "float32":
+        cbvh = tcb.upload_cluster_bvh(ts.build_flat_bvh(np.float32), ts, np.float32, "cpu")
+        assert cbvh.tree is None
+        return
+    cbvh = _bvh_taking_bestfirst(ts, np.float64, monkeypatch)
+    tree = cbvh.tree
+    assert isinstance(tree, tcb.ClusterTree)
+    want = tcb.upload_cluster_tree(ts.build_flat_bvh(np.float64), ts, np.float64, "cpu")
+    for name in TREE_FIELDS:
+        assert torch.equal(getattr(tree, name), getattr(want, name)), name
+    assert tree.feat.dtype == torch.float64
+    fn = tcb.make_intersect_fn(ts.tables(np.float64, "cpu"), ts.meta(), cbvh)
+    held = {id(x) for x in cuda_graph._distinct_tensors(fn.leaves)[0]}
+    assert fn.leaves[1].tree is None and not held & {id(x) for x in tree}
+    assert id(tree) in fn.key and not fn.capturable
+    again = fn.rebind(fn.leaves)
+    assert again.key == fn.key and not again.capturable
 
 
 # ---------------------------------------------------------------------------------
@@ -421,49 +432,82 @@ PM = {"emissions": 2000, "caustic_factor": 2.0, "k_nearest_photons": 8,
       "direct_visualization": False}
 
 
-@pytest.mark.parametrize("route", ["streamed", "batch", "photon", "trips"])
+ROUTES = ["streamed", "batch", "photon", "trips", "sharded_render", "image_step", "distributed"]
+
+
+@pytest.mark.parametrize("route", ROUTES)
 def test_uncapturable_intersect_runs_eagerly(route, monkeypatch):
     """With every device taken for one that captures (cuda_graph.captures and
-    path_tracer._graph_trips patched to True) and method=None taking
-    best-first (as float64 tables do on the card), render()'s loops (the
-    streamed and batch path tracer, the photon mapper's emission and eye
-    pass) and the train step's trips run every step eagerly: a capture would
-    need a card. render reports stats["graphed"] False and the train step
-    keeps no captured trip; the image, loss and gradients equal those of the
-    kernel route (its plain version) within rtol 1e-10."""
+    path_tracer._graph_trips patched to True) and the route rule taking
+    best-first (as float64 tables do on the card), each entry point that
+    builds an intersect from the scene's BVH runs best-first with no tree
+    passed, and every step eagerly: a capture would need a card. render()'s
+    loops (the streamed and batch path tracer, the photon mapper's emission
+    and eye pass) report stats["graphed"] False; the train step keeps no
+    captured trip; sharded_render_step's batch runs (a world of one) capture
+    nothing; image_step and render_distributed (a world of one) render. The
+    image, loss and gradients equal those of the kernel route (its plain
+    version) within rtol 1e-10."""
     j = height_field_scene(6, 8, 1, photon_map=PM if route == "photon" else None)
-    scene = mt.Scene(j)
     cfg = mt.RenderConfig(dtype="float64", max_bounces=4, streamed=route != "batch",
                           integrator="photon_mapper" if route == "photon" else "path_tracer",
                           lanes=32)
+    ptcfg = tpt.PTConfig(max_bounces=4)
 
     def run():
-        if route != "trips":
-            stats = {}
+        scene = mt.Scene(j)   # a new scene: its BVH is uploaded under the rule in force
+        stats = {}
+        if route in ("streamed", "batch", "photon"):
             return mt.render(scene, 0, cfg, device="cpu", stats=stats), stats
+        if route == "distributed":
+            return tdist.render_distributed(scene, 0, cfg, device="cpu"), stats
         tables = scene.tables(np.float64, "cpu")
         cbvh = scene.build_cluster_bvh(np.float64, "cpu")
-        tree = trender.build_device_tree(scene, cbvh, "cpu")
+        stats["tree"] = cbvh.tree is not None
         cam = scene.cameras[0]
         film_cfg = tfilm.FilmConfig.from_json(cam.width, cam.height, cam.film)
-        step = tsh.train_step(scene.meta(), tpt.PTConfig(max_bounces=4), cam, film_cfg, "float64",
-                              with_bvh=True, device="cpu", tree=tree)
         lin = torch.arange(cam.width * cam.height)
+        px, py, si = lin % cam.width, lin // cam.width, torch.zeros_like(lin)
         params = {"mat_reflectance": tables.mat_reflectance}
-        loss, grads = step(tables, cbvh, params, lin % cam.width, lin // cam.width,
-                           torch.zeros_like(lin), np.zeros((cam.height, cam.width, 3)))
-        return (loss, grads["mat_reflectance"]), {"graphs": step.graphs}
+        if route == "trips":
+            step = tsh.train_step(scene.meta(), ptcfg, cam, film_cfg, "float64", with_bvh=True,
+                                  device="cpu")
+            loss, grads = step(tables, cbvh, params, px, py, si,
+                               np.zeros((cam.height, cam.width, 3)))
+            stats["graphs"] = step.graphs
+            return (loss, grads["mat_reflectance"]), stats
+        if route == "image_step":
+            step = tsh.image_step(scene.meta(), ptcfg, cam, film_cfg, "float64", device="cpu")
+            return step(tables, cbvh, params, px, py, si).detach().numpy(), stats
+        step = tsh.sharded_render_step(scene.meta(), ptcfg, cam, film_cfg, tsh.LOCAL, "float64",
+                                       with_bvh=True, device="cpu")
+        film = step(tables, cbvh, px, py, si, torch.zeros((cam.height, cam.width, 4),
+                                                          dtype=torch.float64))
+        stats["graphed"] = any(run.graphed for run in step.graphs.values())
+        for run_ in step.graphs.values():
+            run_.close()
+        return tfilm.scan(film).numpy(), stats
 
     want, _ = run()
-    monkeypatch.setattr(tcb, "default_method", lambda cbvh: "bestfirst")
+    bestfirst_calls = []
+    real_bestfirst = tcb.traverse_bestfirst
+    monkeypatch.setattr(tcb, "traverse_bestfirst",
+                        lambda *a, **k: bestfirst_calls.append(1) or real_bestfirst(*a, **k))
+    monkeypatch.setattr(tcb, "takes_bestfirst", lambda device, dtype: True)
     monkeypatch.setattr(cuda_graph, "captures", lambda device: True)
     monkeypatch.setattr(tpt, "_graph_trips", lambda device: True)
     got, stats = run()
+    assert bestfirst_calls
     if route == "trips":
-        assert stats["graphs"] == {}
+        assert stats["tree"] and stats["graphs"] == {}
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10, atol=1e-300)
         return
-    assert stats["graphed"] is False and stats["bounce_steps"] > 0
+    if route in ("image_step", "sharded_render"):
+        assert stats["tree"]
+    if route not in ("image_step", "distributed"):
+        assert stats["graphed"] is False
+    if route in ("streamed", "batch", "photon"):
+        assert stats["bounce_steps"] > 0
     assert float(np.abs(want).max()) > 0.0
     np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-14)
