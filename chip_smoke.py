@@ -7,10 +7,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases (each prints its own lines; any failed check exits non-zero):
   1. device   the card's name and power limit (nvidia-smi); no card, no run
-  2. build    nvcc builds both kernel sources, mcrt_tpu_torch/csrc/traverse.cu and
-              csrc/knn.cu (and the parent's traverse.cu and knn.cu when they are
-              handed in at chip_old/), in parallel, and prints ptxas's register
-              and spill lines
+  2. build    nvcc builds the three kernel sources, mcrt_tpu_torch/csrc/traverse.cu,
+              csrc/knn.cu and csrc/gather_bwd.cu (and the parent's traverse.cu and
+              knn.cu when they are handed in at chip_old/), in parallel, and prints
+              ptxas's register and spill lines
   3. kernel   the traversal kernel against its plain PyTorch version on the card, on camera
               rays, random rays from surface points, shadow rays, a parked block
               and mixed live/dead blocks, one CTA a block and as two-CTA
@@ -98,8 +98,10 @@ Phases (each prints its own lines; any failed check exits non-zero):
                  (graphed, eager, graphed); each step's forward and backward run under
                  CUDA's sync debug mode set to error, and print the loss, the forward
                  and backward times (CUDA events), the traversal launches of the
-                 forward and of the backward's recompute (128 + 128 both ways), and
-                 the peak memory; the loss and gradients must be finite, the
+                 forward and of the backward's recompute (128 + 128 both ways), the
+                 material gather backward's kernel calls (64, one a G_b replay, and
+                 65 in the capturing step; 64 eagerly; the count set to 0 before
+                 the steps and read after them), and the peak memory; the loss and gradients must be finite, the
                  reflectance gradient nonzero, and the loss must fall; eager against
                  graphed: loss rtol 1e-5, gradients within 1e-4 of each table's
                  largest |g|; the memory the graphed step holds (with the trip's pool
@@ -108,7 +110,12 @@ Phases (each prints its own lines; any failed check exits non-zero):
                  never after; the last step profiled (device-busy share, the top
                  kernels); three replayed launches (262,144 rays, 1024 blocks), G_f's
                  after its replay 8 and G_b's two after its replay 64, held to the
-                 plain version, bit for bit as in phase 3
+                 plain version, bit for bit as in phase 3; then the gather backward's
+                 kernel at the train cell's shape (262,144 float32 rows of 27
+                 columns, 4 materials) on card tensors: bit for bit with its plain
+                 twin and with its float64 sum rounded once, within 1e-12 of
+                 index_put_'s float64 sum, and timed against the twin, index_put_
+                 in float64 and its bound
               b. bench.py's bench_bwd point through mcrt_tpu_torch.bench.bench_bwd:
                  trace_streamed(fixed_trips=64) over 2^17 paths a chunk at 1024 spp
                  through 8192 lanes, loss mean(pixel mean^2) over the four tables, a
@@ -134,7 +141,8 @@ Phases (each prints its own lines; any failed check exits non-zero):
                  at 9a's first step's inputs (its trips graphed, as in 9a; the first
                  call of each step captures), under CUDA's sync debug mode set to error,
                  held to that step (loss rtol 1e-5, gradients within 1e-4 of each table's
-                 largest |g|); then train_step and that sharded step timed in turns
+                 largest |g|), the gather backward's kernel calls (set to 0 before,
+                 65 after); then train_step and that sharded step timed in turns
                  (train, sharded, sharded, train); sharded_render_step and
                  render_distributed, held to render(sqrtspp=1) with
                  tests/test_distributed.py's bars (rtol 2e-4, atol 2e-5); walls,
@@ -243,6 +251,7 @@ from unittest import mock
 # H100 SXM peaks (NVIDIA data sheet) used for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
 
 # Per (ray, triangle) operations of one visit: 19 multiplies + 15 adds of the
 # forms, one division, three products, plus the compares; per (ray, cluster)
@@ -277,6 +286,16 @@ KNN_QUERIES = 1 << 14
 # traversal's at 64x64, 1 spp, 8 bounces.
 GRAD_BOUNCES = 64
 SGD_STEPS = 3
+# 9a's material gather backward at the train cell's shape: one trip's 262,144
+# float32 cotangent rows of 27 columns summed into the 4 materials' tables,
+# the rows drawn among the materials in the shares GATHER_SHARES; timed as a
+# CUDA graph of GATHER_GRAPH_CALLS calls replayed GATHER_REPLAYS times.
+GATHER_ROWS = 1 << 18
+GATHER_MATERIALS = 4
+GATHER_COLUMNS = 27
+GATHER_SHARES = (0.70, 0.15, 0.10, 0.05)
+GATHER_GRAPH_CALLS = 20
+GATHER_REPLAYS = 20
 SGD_LR = 3.0
 BWD_CHUNK_LG = 17
 BWD_SPP = 1024
@@ -1557,8 +1576,10 @@ def graphed_trace(scene, idx, sqrtspp, sort_rays=True):
 
 def grad_phase(scene, cbvh, card):
     """Phase 9: the differentiable path. Returns the traversal's launches over
-    9a's train steps (forward and recompute), and 9a's first step: its
-    inputs (tables, params, px, py, si, target) and its loss and gradients."""
+    9a's train steps (forward and recompute), the material gather backward's
+    kernel row of the JSON table (with its calls over 9a's train steps), and
+    9a's first step: its inputs (tables, params, px, py, si, target) and its
+    loss and gradients."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1567,6 +1588,7 @@ def grad_phase(scene, cbvh, card):
     from mcrt_tpu_torch.camera import camera as cam_mod
     from mcrt_tpu_torch.camera import film as film_mod
     from mcrt_tpu_torch.integrator import path_tracer as pt
+    from mcrt_tpu_torch.materials import gather_bwd as gb
     from mcrt_tpu_torch.ops import cluster_bvh
     from mcrt_tpu_torch.ops import traverse_kernel as tk
     from mcrt_tpu_torch.parallel import sharding
@@ -1610,7 +1632,7 @@ def grad_phase(scene, cbvh, card):
         torch.cuda.reset_peak_memory_stats()
         reserved0 = torch.cuda.memory_reserved()
         a, c = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        before = tk.kernel.launches
+        before, gathers = tk.kernel.launches, gb.kernel.launches
         with prof if prof is not None else contextlib.nullcontext():
             t0 = time.perf_counter()
             a.record()
@@ -1631,14 +1653,15 @@ def grad_phase(scene, cbvh, card):
         return {"loss": loss_v, "grads": grads, "fwd_ms": a.elapsed_time(split.start),
                 "bwd_ms": split.start.elapsed_time(c), "wall": time.perf_counter() - t0,
                 "fwd_l": split.launches - before, "bwd_l": tk.kernel.launches - split.launches,
+                "gather_l": gb.kernel.launches - gathers,
                 "peak": torch.cuda.max_memory_allocated() / 2**30,
                 "reserved": (torch.cuda.max_memory_reserved() - reserved0) / 2**30}
 
-    def report(i, how, r):
+    def report(i, how, r, gathers=GRAD_BOUNCES):
         top = {k: float(g.abs().max()) for k, g in r["grads"].items()}
         log("grad", f"step {i} {how}: loss {r['loss']:.9g}; forward {r['fwd_ms']:.1f} ms, backward "
             f"{r['bwd_ms']:.1f} ms, wall {r['wall']:.3f} s; traversal launches forward {r['fwd_l']}, "
-            f"recompute {r['bwd_l']}; peak memory {r['peak']:.3f} GiB allocated, "
+            f"recompute {r['bwd_l']}; gather backward kernel calls {r['gather_l']}; peak memory {r['peak']:.3f} GiB allocated, "
             f"{r['reserved']:.3f} GiB reserved above the step's start; largest |g| "
             + ", ".join(f"{k[4:]} {v:.4g}" for k, v in top.items()) + f" | {card}")
         check(np.isfinite(r["loss"]) and all(bool(torch.isfinite(g).all()) for g in r["grads"].values()),
@@ -1647,6 +1670,8 @@ def grad_phase(scene, cbvh, card):
         check(r["fwd_l"] == 2 * GRAD_BOUNCES and r["bwd_l"] == 2 * GRAD_BOUNCES, "grad",
               f"step {i} {how}: expected {2 * GRAD_BOUNCES} traversal launches forward and as many "
               f"in the recompute, got {r['fwd_l']} and {r['bwd_l']}")
+        check(r["gather_l"] == gathers, "grad",
+              f"step {i} {how}: expected {gathers} gather backward kernel calls, got {r['gather_l']}")
 
     # Step 0 captures the trip: tk.traverse's calls 0-1 are trip 0's eager
     # warm-up, 2-3 G_f's capture and 4-5 G_b's. Three replayed launches are
@@ -1658,13 +1683,17 @@ def grad_phase(scene, cbvh, card):
                                         "G_b replay 64 (trip 0), primary": (1, 64, 4),
                                         "G_b replay 64 (trip 0), shadow": (1, 64, 5)})
     losses, train_launches, runs = [], 0, {}
-    # The last step runs under the profiler (CUDA activity only).
+    # The last step runs under the profiler (CUDA activity only). The gather
+    # backward's kernel runs once in each G_b replay, and once more in step
+    # 0's eager warm-up trip (its first trip, before the capture).
     prof = profile(activities=[ProfilerActivity.CUDA])
+    gb.kernel.launches = 0
     for i in range(SGD_STEPS):
         patches = (mock.patch.object(tk, "traverse", train_rec), snaps.patches()) if i == 0 else ()
         last = i == SGD_STEPS - 1
         r = train_call(params, patches=patches, prof=prof if last else None)
-        report(i, "graphed, profiled" if last else "graphed", r)
+        report(i, "graphed, profiled" if last else "graphed", r,
+               gathers=GRAD_BOUNCES + 1 if i == 0 else GRAD_BOUNCES)
         train_launches += r["fwd_l"] + r["bwd_l"]
         losses.append(r["loss"])
         if i == 0:
@@ -1687,12 +1716,14 @@ def grad_phase(scene, cbvh, card):
                 check(all(v <= 1e-4 for v in apart.values()), "grad",
                       f"step 0 {how}: the gradients are not the graphed step's")
         params = sgd_update(params, r["grads"], truth)
+    gather_launches = gb.kernel.launches
     (trip,) = step.graphs.values()
     static = sum(t.numel() * t.element_size() for t in [*trip.leaves, *trip.state, *trip.gout])
     e, g2 = runs["eager"][0], runs["graphed"][1]
     footprint = g2["reserved"] + (trip.pool_bytes + static) / 2**30
     log("grad", f"{SGD_STEPS} SGD steps of size {SGD_LR}: loss {losses[0]:.9g} -> {losses[-1]:.9g} "
-        f"(no host sync inside a step: sync debug mode 'error') | {card}")
+        f"(no host sync inside a step: sync debug mode 'error'); gather backward kernel calls over "
+        f"9a's {SGD_STEPS + 2} train steps {gather_launches} | {card}")
     per = [sum(n for c, n in trip.per_replay[w] if c is tk.kernel) for w in (0, 1)]
     log("grad", f"the trip's graphs: G_f {per[0]} and G_b {per[1]} traversal launches a replay; pool "
         f"{trip.pool_bytes / 2**30:.3f} GiB reserved, static buffers {static / 2**30:.3f} GiB; the "
@@ -1728,6 +1759,8 @@ def grad_phase(scene, cbvh, card):
     del prof
     held_to_plain(tk, snaps, "train step 0", card)
     del train_rec, snaps
+    gather_row = gather_bwd_check(card)
+    gather_row["launches"] = gather_launches
 
     # ---- 9b: forward+backward at bench.py's bench_bwd point, through the port's bench ----
     # Its rate from bench.bench_bwd (a warm-up chunk, then BWD_REPS chunks side
@@ -1902,7 +1935,79 @@ def grad_phase(scene, cbvh, card):
           "the losses through the kernel and through the plain traversal differ")
     log("grad", f"kernel vs plain through the gradient: losses identical; the plain route's "
         f"check took {t_plain:.1f} s | {card}")
-    return train_launches, step0
+    return train_launches, gather_row, step0
+
+
+def gather_bwd_check(card):
+    """Phase 9a's material gather backward at the train cell's shape, on
+    card tensors: GATHER_ROWS float32 cotangent rows (mixed signs,
+    magnitudes 1e-6 to 1e3) of GATHER_COLUMNS columns, summed by their
+    material among GATHER_MATERIALS (drawn in the shares GATHER_SHARES). The
+    kernel's result must equal the plain twin's bit for bit, and the float64
+    cotangents' result rounded once; the float64 sum must lie within 1e-12
+    of index_put_'s in each column (relative to the column's norm). Then
+    timed with CUDA events: the kernel (ms: a CUDA graph of
+    GATHER_GRAPH_CALLS calls replayed, so no host time between calls; the
+    call with its wrapper, eager, beside it), the twin (plain_ms), and the
+    library route, index_put_(accumulate=True) in float64 on cotangents
+    converted beforehand (library_ms), which the kernel replaced. The bound:
+    the bytes read, R * (C * 4 + 8) with float32 cotangents, at the HBM
+    rate (the input is warm in the 50 MB L2 between calls). Returns the
+    JSON table's row (less launches)."""
+    import torch
+
+    from mcrt_tpu_torch.materials import gather_bwd as gb
+
+    dev = torch.device("cuda", 0)
+    R, M, C = GATHER_ROWS, GATHER_MATERIALS, GATHER_COLUMNS
+    gen = torch.Generator(device=dev).manual_seed(23)
+    shares = torch.tensor(GATHER_SHARES, dtype=torch.float64, device=dev)
+    m = torch.multinomial(shares, R, replacement=True, generator=gen)
+    mag = 10.0 ** (torch.rand((R, C), generator=gen, device=dev, dtype=torch.float64) * 9.0 - 6.0)
+    sign = torch.where(torch.rand((R, C), generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    grad = (mag * sign).to(torch.float32)
+    g64 = grad.to(torch.float64)
+    got = gb.gather_rows_backward(m, grad, M)
+    plain = gb.gather_rows_backward_plain(m, grad, M)
+    got64 = gb.gather_rows_backward(m, g64, M)
+    lib = torch.zeros((M, C), dtype=torch.float64, device=dev).index_put_((m,), g64, accumulate=True)
+    torch.cuda.synchronize()
+    max_err = float((got - plain).abs().max())
+    rel = float(((got64 - lib).norm(dim=0) / lib.norm(dim=0)).max())
+    chunks, warps, shared = gb.layout(R, M, C)
+    log("grad", f"9a gather backward at the cell's shape, {R} x {C} float32 rows into {M} materials "
+        f"({chunks} chunks of {gb.CHUNK} rows, {warps} warps a chunk, accumulators in "
+        f"{'shared' if shared else 'global'} memory): kernel vs plain twin bit-identical "
+        f"{torch.equal(got, plain)} (largest |d| {max_err:.3g}); float64 cotangents' sum rounded "
+        f"once equal {torch.equal(got, got64.to(torch.float32))}; float64 sum vs index_put_ in "
+        f"float64: largest column gap {rel:.3g} of the column's norm | {card}")
+    check(torch.equal(got, plain), "grad", "9a gather backward: the kernel and its plain twin differ")
+    check(torch.equal(got, got64.to(torch.float32)), "grad",
+          "9a gather backward: the float32 result is not the float64 sum rounded once")
+    check(rel <= 1e-12, "grad", f"9a gather backward: {rel:.3g} off index_put_'s float64 sum")
+    wrapper_ms = cuda_time_ms(lambda: gb.gather_rows_backward(m, grad, M), reps=50, warmup=2)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GATHER_GRAPH_CALLS):
+            gb.gather_rows_backward(m, grad, M)
+    ms = cuda_time_ms(graph.replay, reps=GATHER_REPLAYS) / GATHER_GRAPH_CALLS
+    del graph
+    plain_ms = cuda_time_ms(lambda: gb.gather_rows_backward_plain(m, grad, M), reps=3)
+    library_ms = cuda_time_ms(
+        lambda: torch.zeros((M, C), dtype=torch.float64, device=dev).index_put_(
+            (m,), g64, accumulate=True), reps=3)
+    bytes_, adds = R * (C * 4 + 8), R * C
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, adds / FP64_OPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    log("grad", f"9a gather backward timed: {ms:.5f} ms a call replayed in a graph of "
+        f"{GATHER_GRAPH_CALLS}, {wrapper_ms:.5f} ms with the wrapper; plain twin {plain_ms:.3f} ms; "
+        f"index_put_ in float64 {library_ms:.3f} ms; bound {bound_ms:.5f} ms ({bytes_} bytes, "
+        f"{adds} float64 adds), {ms / bound_ms:.1f}x the bound | {card}")
+    return {"name": "gather_bwd", "route": "cuda", "source": "mcrt_tpu_torch/csrc/gather_bwd.cu",
+            "replaces": None,     # no JAX kernel: XLA's scatter-add served the JAX package
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes > t_ops else "operations", "library_ms": library_ms,
+            "library": "torch.Tensor.index_put_(accumulate=True) in float64, one call"}
 
 
 def run_counted(tk, fn, sync_debug=False):
@@ -2018,7 +2123,8 @@ def bwd_turns_main(chunk_lg: int) -> int:
 
 def multi_phase(scene, cbvh, card, step0):
     """Phase 10: the sharded steps on torch.distributed. Returns the traversal's
-    launches in 10a's sharded train step."""
+    launches and the material gather backward's kernel calls in 10a's sharded
+    train step."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2026,6 +2132,7 @@ def multi_phase(scene, cbvh, card, step0):
     import mcrt_tpu_torch as mt
     from mcrt_tpu_torch.camera import film as film_mod
     from mcrt_tpu_torch.integrator import path_tracer as pt
+    from mcrt_tpu_torch.materials import gather_bwd as gb
     from mcrt_tpu_torch.ops import traverse_kernel as tk
     from mcrt_tpu_torch.parallel import distributed, sharding
 
@@ -2051,15 +2158,21 @@ def multi_phase(scene, cbvh, card, step0):
         torch.cuda.synchronize()
         step = sharding.sharded_train_step(meta, cfg, cam, film_cfg, mesh, torch.float32,
                                            with_bvh=True, device=dev)
+        gb.kernel.launches = 0
         (loss, grads), wall, launches_t, peak = run_counted(
             tk, lambda: step(tables, cbvh, params, *rays, target), sync_debug=True)
+        gathers_t = gb.kernel.launches
         apart = grads_apart(grads, step0["grads"])
         log("multi", f"10a sharded train step, world of one (nccl), {cam.width}x{cam.height} 1 spp, "
             f"max_bounces {GRAD_BOUNCES}: {wall:.3f} s, loss {float(loss):.9g} (9a step 0: "
-            f"{step0['loss']:.9g}), traversal launches {launches_t}, peak memory {peak:.3f} GiB; "
+            f"{step0['loss']:.9g}), traversal launches {launches_t}, gather backward kernel calls "
+            f"{gathers_t}, peak memory {peak:.3f} GiB; "
             f"largest |dg| / largest |g| against 9a step 0: "
             + ", ".join(f"{k[4:]} {v:.3g}" for k, v in apart.items()) + f" | {card}")
         check(launches_t > 0, "multi", "the sharded train step launched no traversal")
+        check(gathers_t == GRAD_BOUNCES + 1, "multi",
+              f"the sharded train step called the gather backward's kernel {gathers_t} times, not "
+              f"{GRAD_BOUNCES + 1} (one a G_b replay, one in the eager warm-up trip)")
         check(abs(float(loss) - step0["loss"]) <= 1e-5 * abs(step0["loss"]), "multi",
               "the sharded train step's loss is not 9a's")
         check(all(v <= 1e-4 for v in apart.values()), "multi",
@@ -2199,7 +2312,7 @@ def multi_phase(scene, cbvh, card, step0):
     bad, worst = images_apart(img_p, img_n)
     check(bad == 0, "multi", f"10c: the profiled image is not the unprofiled one ({bad} elements)")
     scene.cameras.pop()
-    return launches_t
+    return launches_t, gathers_t
 
 
 def bench_phase(scene, cbvh, card, render_rays_per_path):
@@ -2969,13 +3082,14 @@ def main() -> int:
     import mcrt_tpu_torch as mt
     from mcrt_tpu_torch.accel import knn_kernel as kk
     from mcrt_tpu_torch.camera import image as image_mod
+    from mcrt_tpu_torch.materials import gather_bwd as gb
     from mcrt_tpu_torch.ops import traverse_kernel as tk
     from mcrt_tpu_torch.scene.synthetic import height_field_scene
 
     # ---- 2. build: one nvcc per source, started together ----
     t0 = time.perf_counter()
     with ThreadPoolExecutor(4) as pool:
-        futs = [pool.submit(m.build) for m in (tk, kk)]
+        futs = [pool.submit(m.build) for m in (tk, kk, gb)]
         parent = pool.submit(load_parent_kernel, OLD_TRAVERSE)
         parent_knn_lib = pool.submit(load_parent_knn, OLD_KNN)
         for fut in futs:
@@ -2984,7 +3098,8 @@ def main() -> int:
     log("build", f"nvcc sm_90a builds + loads {time.perf_counter() - t0:.2f} s; parent's "
         f"traverse.cu {'built' if parent else 'not given'}, parent's knn.cu "
         f"{'built' if parent_knn_lib else 'not given'}")
-    for name, log_text in (("traverse.cu", tk.kernel.build_log), ("knn.cu", kk.library.build_log)):
+    for name, log_text in (("traverse.cu", tk.kernel.build_log), ("knn.cu", kk.library.build_log),
+                           ("gather_bwd.cu", gb.kernel.build_log)):
         for line in log_text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line or "entry" in line:
                 log("build", f"{name}: {line.strip()}")
@@ -3174,13 +3289,13 @@ def main() -> int:
 
     # ---- 9. the differentiable path ----
     t9 = time.perf_counter()
-    train_launches, step0 = grad_phase(scene, cbvh, card)
+    train_launches, gather_row, step0 = grad_phase(scene, cbvh, card)
     log("done", f"phase 9 took {time.perf_counter() - t9:.1f} s, the whole run "
         f"{time.perf_counter() - t_start:.1f} s | {card}")
 
     # ---- 10. the multi-device steps ----
     t10 = time.perf_counter()
-    multi_launches = multi_phase(scene, cbvh, card, step0)
+    multi_launches, multi_gathers = multi_phase(scene, cbvh, card, step0)
     log("done", f"phase 10 took {time.perf_counter() - t10:.1f} s, the whole run "
         f"{time.perf_counter() - t_start:.1f} s | {card}")
 
@@ -3226,7 +3341,10 @@ def main() -> int:
         "replaces": "mcrt_tpu/accel/knn_kernel.py:59",
         "launches": pm_launches[name],   # the photon mapper's main path (phase 6)
         **knn_rows[name],
-    } for name in ("knn_ring1", "knn_rings", "knn_scan")]
+    } for name in ("knn_ring1", "knn_rings", "knn_scan")] + [{
+        **gather_row,                 # its launches: phase 9a's train steps' calls
+        "sharded_train_launches": multi_gathers,   # phase 10a's sharded train step
+    }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

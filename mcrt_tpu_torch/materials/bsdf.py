@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import geometry as g
+from .gather_bwd import gather_rows_backward
 
 REFLECT, REFRACT, DIFFUSE = 0, 1, 2
 
@@ -78,15 +79,16 @@ def pack_materials(tables):
 class _GatherRows(torch.autograd.Function):
     """pack[m], whose backward sums each row's cotangents in float64.
 
-    A material's row gathers one cotangent per ray. Summed in float32 (as
-    indexing's own backward does, one long run per row), the gradient of a
-    batch carries a rounding error that grows with the batch and changes when
-    the batch is split over ranks: two ranks differed from one by 1e-4 of the
-    largest |g| at 262,144 rays on an H100. Summed in float64, the error is far
-    below the float32 result's own rounding. The sum is indexing's own
-    backward in float64 (index_put_ with accumulate: on CUDA it sorts the
-    rows and adds each row's run in order, so the gradients are
-    deterministic, where index_add_'s atomics are not)."""
+    A material's row gathers one cotangent per ray. Summed in float32, the
+    gradient of a batch carries a rounding error that grows with the batch
+    and changes when the batch is split over ranks: two ranks differed from
+    one by 1e-4 of the largest |g| at 262,144 rays on an H100. Summed in
+    float64, the error is far below the float32 result's own rounding. The
+    sum is `gather_bwd.gather_rows_backward`: on the card a hand-written
+    kernel (csrc/gather_bwd.cu) that adds the rows in an order fixed by the
+    shapes alone, with no atomics, so the gradients are deterministic and
+    the same on every card; on the CPU its plain twin, in the same order. It
+    replaces no JAX kernel: XLA's scatter-add served the JAX package."""
 
     @staticmethod
     def forward(ctx, pack, m):
@@ -97,8 +99,7 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (m,) = ctx.saved_tensors
-        acc = torch.zeros(ctx.pack_shape, dtype=torch.float64, device=grad.device)
-        return acc.index_put_((m,), grad.to(torch.float64), accumulate=True).to(grad.dtype), None
+        return gather_rows_backward(m, grad, ctx.pack_shape[0]), None
 
 
 def gather_materials(tables, mat_id, pack=None) -> MatParams:

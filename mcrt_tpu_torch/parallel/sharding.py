@@ -31,6 +31,7 @@ import torch.distributed as dist
 from ..camera import camera as cam_mod
 from ..camera import film as film_mod
 from ..integrator import path_tracer as pt
+from ..materials import gather_bwd
 from ..ops import cluster_bvh
 from ..ops import traverse_kernel as tk
 from ..utils import trace
@@ -202,8 +203,11 @@ def sharded_train_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype,
     and the counters "trip_forward_replays" and "trip_backward_replays"
     (the replays of the trips' G_f and G_b in the call, utils/cuda_graph;
     counted here, since the backward's replays run on autograd's thread)
-    and "traverse_launches" (the traversal kernel's launches that ran in
-    the call), added to what the dict holds. With None nothing is recorded."""
+    and "traverse_launches" and "gather_bwd_launches" (the traversal
+    kernel's launches and the material gather backward's kernel calls that
+    ran in the call: on the card one of the latter a G_b replay, and one more
+    in the first call's eager warm-up trip; 0 on the CPU), added to what the
+    dict holds. With None nothing is recorded."""
     device = resolve_device(device)
     dtype = torch_dtype(dtype)
     local = _local_film(meta, cfg, cam, film_cfg, mesh, dtype, device, differentiable=True)
@@ -211,6 +215,7 @@ def sharded_train_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype,
     def value_and_grad(tables, cbvh, params, px, py, si, target, stats=None):
         with trace.recording(stats), trace.span("train.step"):
             launches, replays = tk.kernel.launches, _trip_replays(local.graphs)
+            gathers = gather_bwd.kernel.launches
             with trace.span("train.params"):
                 named = params if isinstance(params, dict) else {"mat_reflectance": params}
                 leaves = {k: v.detach().requires_grad_() for k, v in named.items()}
@@ -232,6 +237,7 @@ def sharded_train_step(meta, cfg: pt.PTConfig, cam, film_cfg, mesh: Mesh, dtype,
             trace.count("trip_forward_replays", after[0] - replays[0])
             trace.count("trip_backward_replays", after[1] - replays[1])
             trace.count("traverse_launches", tk.kernel.launches - launches)
+            trace.count("gather_bwd_launches", gather_bwd.kernel.launches - gathers)
         return loss.detach(), grads if isinstance(params, dict) else grads["mat_reflectance"]
 
     fn = value_and_grad if with_bvh else lambda tables, params, px, py, si, target, stats=None: \

@@ -3,7 +3,7 @@
 train.forward and train.backward inside it; trip_forward_replays and
 trip_backward_replays, the replays of the trips' two graphs
 (utils/cuda_graph.GraphedTrip.replays), counted on the caller's side; and
-traverse_launches.
+traverse_launches and gather_bwd_launches.
 
 float32 on the CPU, on the benchmark's height field at n = 8, 8 x 8 pixels,
 one sample a pixel, 6 bounces. `path_tracer._graph_trips` is patched where a
@@ -23,6 +23,7 @@ import torch
 from benchmark.scenes.height_field import height_field_scene
 from mcrt_tpu_torch.camera import film as tfilm
 from mcrt_tpu_torch.integrator import path_tracer as tpt
+from mcrt_tpu_torch.materials import gather_bwd
 from mcrt_tpu_torch.parallel import sharding as tsh
 from mcrt_tpu_torch.scene.loader import Scene
 from mcrt_tpu_torch.utils import trace
@@ -97,6 +98,23 @@ def test_trip_replays_counted_on_the_callers_side():
     assert trip.replays == [2 * bounces - 1, 2 * bounces]
 
 
+@pytest.mark.parametrize("graphed", [False, True], ids=["checkpoint", "trips"])
+def test_gather_bwd_launches_recorded_and_zero_on_cpu(graphed):
+    """The step records gather_bwd_launches, 0 on the CPU, where each trip's
+    backward sums the material gather's cotangents with the kernel's plain
+    twin: once a trip in a call after the capturing one."""
+    bounces = 6
+    step, args = _setup(bounces=bounces)
+    with mock.patch.object(tpt, "_graph_trips", lambda device: graphed):
+        step(*args, stats={})
+        stats = {}
+        with mock.patch.object(gather_bwd, "gather_rows_backward_plain",
+                               wraps=gather_bwd.gather_rows_backward_plain) as plain:
+            step(*args, stats=stats)
+    assert stats["gather_bwd_launches"] == 0
+    assert plain.call_count == bounces
+
+
 def test_a_count_on_another_thread_is_not_recorded():
     """The recorder is the recording thread's own: a counter bumped on another
     thread (autograd's device thread runs a backward's replays on the card)
@@ -146,8 +164,10 @@ def test_graphed_step_counts_on_card():
     """On the card (height field n = 32, 32 x 32, one sample a pixel, 64
     bounces): a step after the capturing one replays each trip's G_f and G_b
     once (64 and 64, though autograd runs the backward's replays on its own
-    thread) and launches the traversal 256 times (2 a trip forward, 2 in the
-    recompute); the first step replays 63 forward."""
+    thread), launches the traversal 256 times (2 a trip forward, 2 in the
+    recompute) and calls the gather's backward kernel once a G_b replay; the
+    first step replays 63 forward, and its eager warm-up trip calls the
+    gather's kernel once more."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (CUDA graphs and the kernel have no CPU mode); "
                     "run on the card")
@@ -160,4 +180,5 @@ def test_graphed_step_counts_on_card():
     assert (first["trip_forward_replays"], first["trip_backward_replays"]) == (63, 64)
     assert (second["trip_forward_replays"], second["trip_backward_replays"]) == (64, 64)
     assert second["traverse_launches"] == 256
+    assert (first["gather_bwd_launches"], second["gather_bwd_launches"]) == (65, 64)
     assert set(SPANS) <= set(second["spans"]) and torch.isfinite(loss)
